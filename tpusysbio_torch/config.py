@@ -1,0 +1,66 @@
+"""Frozen solver configuration, field for field with ``tpusysbio/config.py``.
+
+Same names, defaults and ``__post_init__`` checks as the reference's
+``SolverConfig`` (``tpusysbio/config.py:21-117``), so a configuration means
+the same thing in both packages. ``linear_solver='pallas'`` keeps its name:
+in the port it selects the hand-written CUDA kernels of
+``linalg/gpu_lu.py``. ``FitConfig`` and ``MeshConfig`` come with the fit
+slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Configuration for the integrators (see the reference's docstrings
+    at ``tpusysbio/config.py`` for the meaning of each field).
+
+    ``max_steps`` bounds the step loop so a batch with one pathological
+    member always terminates; that member ends ``STATUS_MAX_STEPS``.
+    """
+
+    rtol: float = 1e-6
+    atol: float = 1e-9
+    max_steps: int = 4096
+    max_order: int = 5            # BDF/NDF maximum order
+    newton_maxiter: int = 4       # modified-Newton cap
+    min_factor: float = 0.2       # step shrink floor
+    max_factor: float = 10.0      # step growth cap
+    safety: float = 0.9
+    first_step: Optional[float] = None  # None -> Hairer heuristic
+    max_step: float = float("inf")
+    # Include sensitivity columns in the local error norm.
+    sens_error_control: bool = False
+    # f32 hot loop with f64 step control (not ported yet: raises).
+    mixed_precision: bool = False
+    # 'full' or 'f32': precision of the sensitivity columns only.
+    sens_precision: str = "full"
+    # 'lu' | 'inv' | 'inv32' | 'pallas' (CUDA kernels) | 'banded' (not
+    # ported yet: raises)
+    linear_solver: str = "inv"
+    # (kl, ku) bandwidth of the state Jacobian, for linear_solver='banded'
+    jac_bandwidth: tuple = None
+    # Dense-output interpolation correction in f32 on top of the exact
+    # D[0] anchor.
+    dense_f32: bool = False
+    # Dense-output windowing (0 = off; not ported yet: raises otherwise).
+    dense_window: int = 0
+    # Raise on a non-finite RHS at the initial condition.
+    debug_checks: bool = False
+
+    def __post_init__(self):
+        if self.linear_solver not in ("lu", "inv", "inv32", "pallas",
+                                      "banded"):
+            raise ValueError(f"unknown linear_solver {self.linear_solver!r}")
+        if self.linear_solver == "banded" and self.jac_bandwidth is None:
+            raise ValueError("linear_solver='banded' requires "
+                             "jac_bandwidth=(kl, ku)")
+        if self.sens_precision not in ("full", "f32"):
+            raise ValueError(
+                f"unknown sens_precision {self.sens_precision!r}")
+        if self.dense_window != 0 and self.dense_window < 2:
+            raise ValueError("dense_window must be 0 (off) or >= 2")
