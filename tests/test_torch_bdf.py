@@ -103,7 +103,8 @@ def test_bench_contract_sensitivities_agree(reference, port):
 def test_cpu_run_launches_no_kernel(port):
     """On CPU tensors the wrappers take their plain twins."""
     _, launches = port
-    assert launches == {"gj_inverse_f32": 0, "refine_solve": 0}
+    assert launches == {"gj_inverse_f32": 0, "refine_solve": 0,
+                        "gj_inverse_major_f32": 0}
 
 
 @pytest.mark.parametrize("prec,dense,bound", [
@@ -162,7 +163,8 @@ def test_jacfwd_fallback_matches_closed_form_jacobian():
                                atol=1e-15)
 
 
-@pytest.mark.parametrize("kw", [dict(mixed_precision=True),
+@pytest.mark.parametrize("kw", [dict(linear_solver="banded",
+                                     jac_bandwidth=(1, 1)),
                                 dict(dense_window=4)])
 def test_unported_options_raise(kw):
     model = library.mapk_huang_ferrell(device="cpu")

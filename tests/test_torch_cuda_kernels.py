@@ -25,14 +25,21 @@ def _newton_like(rng, B, n, scale=0.08):
     return np.eye(n)[None] - scale * rng.standard_normal((B, n, n))
 
 
+def _gj(monkeypatch, layout, a):
+    """``gj_inverse_f32`` with the module's layout switch set to ``layout``:
+    K1 under 'minor', K3 under 'major'."""
+    monkeypatch.setattr(gpu_lu, "_LAYOUT", layout)
+    return gpu_lu.gj_inverse_f32(a)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4, 22, 64])
-def test_gj_kernel_matches_plain(cuda_device, n):
+def test_gj_kernel_matches_plain(cuda_device, monkeypatch, n):
     rng = np.random.default_rng(n)
     a = torch.as_tensor(_newton_like(rng, 256, n), dtype=torch.float32,
                         device=cuda_device)
     before = gpu_lu.LAUNCHES["gj_inverse_f32"]
-    got = gpu_lu.gj_inverse_f32(a)
+    got = _gj(monkeypatch, "minor", a)
     torch.cuda.synchronize()
     assert gpu_lu.LAUNCHES["gj_inverse_f32"] == before + 1
     ref = gpu_lu.gj_inverse_f32_plain(a)
@@ -40,12 +47,57 @@ def test_gj_kernel_matches_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
-def test_gj_kernel_singular_finite_and_nan_nonfinite(cuda_device):
+@pytest.mark.parametrize("layout", ["minor", "major"])
+def test_gj_kernel_singular_finite_and_nan_nonfinite(cuda_device,
+                                                     monkeypatch, layout):
     a = torch.tensor([[[1.0, 2.0], [2.0, 4.0]]], device=cuda_device)
-    assert bool(torch.isfinite(gpu_lu.gj_inverse_f32(a)).all())
+    assert bool(torch.isfinite(_gj(monkeypatch, layout, a)).all())
     b = torch.eye(3, device=cuda_device)[None].clone()
     b[0, 1, 2] = float("nan")
-    assert not bool(torch.isfinite(gpu_lu.gj_inverse_f32(b)).all())
+    assert not bool(torch.isfinite(_gj(monkeypatch, layout, b)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(256, 22), (1024, 22), (7, 1), (5, 32),
+                                 (33, 33), (256, 64)])
+def test_gj_major_kernel_matches_plain_and_k1(cuda_device, monkeypatch, B,
+                                              n):
+    """K3 (one warp per matrix) against the plain version it shares with
+    K1, and against K1: same pivots, same arithmetic."""
+    rng = np.random.default_rng(100 + n)
+    a = torch.as_tensor(_newton_like(rng, B, n), dtype=torch.float32,
+                        device=cuda_device)
+    before = dict(gpu_lu.LAUNCHES)
+    got = _gj(monkeypatch, "major", a)
+    torch.cuda.synchronize()
+    assert gpu_lu.LAUNCHES["gj_inverse_major_f32"] == (
+        before["gj_inverse_major_f32"] + 1)
+    assert gpu_lu.LAUNCHES["gj_inverse_f32"] == before["gj_inverse_f32"]
+    ref = gpu_lu.gj_inverse_major_f32_plain(a)
+    assert float((got - ref).abs().max()) <= 1e-5
+    k1 = _gj(monkeypatch, "minor", a)
+    assert float((got - k1).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_gj_major_kernel_needs_pivoting(cuda_device, monkeypatch):
+    """A permutation matrix: every pivot step swaps, and the column swaps
+    at the end must undo them."""
+    perm = torch.tensor([3, 0, 4, 1, 2])
+    a = torch.eye(5, device=cuda_device)[perm][None].contiguous()
+    got = _gj(monkeypatch, "major", a)
+    assert torch.equal(got, a.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_layout_switch_selects_the_kernel(cuda_device, monkeypatch):
+    a = torch.eye(4, device=cuda_device).repeat(3, 1, 1)
+    monkeypatch.setattr(gpu_lu, "_LAYOUT", "major")
+    before = dict(gpu_lu.LAUNCHES)
+    gpu_lu.inverse(a.double())
+    assert gpu_lu.LAUNCHES["gj_inverse_major_f32"] == (
+        before["gj_inverse_major_f32"] + 1)
+    assert gpu_lu.LAUNCHES["gj_inverse_f32"] == before["gj_inverse_f32"]
 
 
 @pytest.mark.cuda
@@ -66,14 +118,15 @@ def test_refine_kernel_matches_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
-def test_wrappers_reject_bad_inputs(cuda_device):
+def test_wrappers_reject_bad_inputs(cuda_device, monkeypatch):
     a = torch.eye(4, device=cuda_device).repeat(2, 1, 1)
     with pytest.raises(TypeError):
         gpu_lu.gj_inverse_f32(a.double())
     with pytest.raises(ValueError):
         gpu_lu.gj_inverse_f32(a.transpose(1, 2).contiguous()[:, :, :3])
-    with pytest.raises(ValueError):
-        gpu_lu.gj_inverse_f32(torch.eye(65, device=cuda_device)[None])
+    for layout in ("minor", "major"):
+        with pytest.raises(ValueError):
+            _gj(monkeypatch, layout, torch.eye(65, device=cuda_device)[None])
     with pytest.raises(ValueError):
         gpu_lu.refine_solve(a, a.double(), torch.ones(2, 4, 1,
                                                       device=cuda_device,

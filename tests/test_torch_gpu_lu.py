@@ -51,6 +51,58 @@ def test_gj_plain_matches_both_reference_layouts(monkeypatch, layout):
     assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) <= 1e-5
 
 
+@pytest.mark.parametrize("layout", ["minor", "major", None])
+def test_layout_switch_on_the_cpu_takes_the_plain_version(monkeypatch,
+                                                          layout):
+    """On CPU tensors both values of the switch (the module's ``_LAYOUT``
+    read from ``TPUSYSBIO_GJ_LAYOUT``), and the value the environment gave,
+    give the one plain version that K1 and K3 share, and count no launch."""
+    rng = np.random.default_rng(12)
+    a = torch.as_tensor(_newton_like(rng, 5, 22), dtype=torch.float32)
+    ref = gpu_lu.gj_inverse_f32_plain(a)
+    assert gpu_lu.gj_inverse_major_f32_plain is gpu_lu.gj_inverse_f32_plain
+    gpu_lu.reset_launches()
+    if layout is not None:
+        monkeypatch.setattr(gpu_lu, "_LAYOUT", layout)
+    got = gpu_lu.gj_inverse_f32(a)
+    assert torch.equal(got, ref)
+    assert set(gpu_lu.LAUNCHES) == {"gj_inverse_f32", "refine_solve",
+                                    "gj_inverse_major_f32"}
+    assert set(gpu_lu.LAUNCHES.values()) == {0}
+
+
+def test_layout_switch_is_read_from_the_environment():
+    """``_LAYOUT`` is read once at import, as the reference reads it."""
+    import importlib
+    import os
+    from unittest import mock
+
+    try:
+        with mock.patch.dict(os.environ, {"TPUSYSBIO_GJ_LAYOUT": "major"}):
+            assert importlib.reload(gpu_lu)._LAYOUT == "major"
+    finally:
+        with mock.patch.dict(os.environ):
+            os.environ.pop("TPUSYSBIO_GJ_LAYOUT", None)
+            assert importlib.reload(gpu_lu)._LAYOUT == "minor"
+
+
+@pytest.mark.parametrize("layout", ["minor", "major"])
+def test_schur_inverse_under_both_layouts(monkeypatch, layout):
+    """n = 97 goes through the wrapper twice whatever the layout."""
+    monkeypatch.setattr(gpu_lu, "_LAYOUT", layout)
+    calls = []
+    real = gpu_lu.gj_inverse_f32
+    monkeypatch.setattr(gpu_lu, "gj_inverse_f32",
+                        lambda a: calls.append(a.shape[-1]) or real(a))
+    rng = np.random.default_rng(13)
+    a = torch.as_tensor(np.eye(97)[None] - 0.05 * rng.normal(size=(2, 97,
+                                                                   97)))
+    x = gpu_lu.inverse(a)
+    assert calls == [64, 33]
+    assert float(torch.max(torch.abs(x @ a - torch.eye(
+        97, dtype=a.dtype)))) < 1e-11
+
+
 @pytest.mark.parametrize("n", [4, 22, 97])
 def test_inverse_accuracy(n):
     """Mirrors tests/test_pallas.py::test_inverse_accuracy (n=97 takes
@@ -157,7 +209,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     fact = gpu_lu.factor_for_solve(a)
     gpu_lu.solve_refined(fact, torch.as_tensor(rng.standard_normal((2, 6,
                                                                      1))))
-    assert gpu_lu.LAUNCHES == {"gj_inverse_f32": 0, "refine_solve": 0}
+    assert gpu_lu.LAUNCHES == {"gj_inverse_f32": 0, "refine_solve": 0,
+                               "gj_inverse_major_f32": 0}
 
 
 # --------------------------------------------------------------------------

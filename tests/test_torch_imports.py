@@ -7,6 +7,7 @@ in ``chip_smoke.py``.
 """
 
 import ast
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -53,12 +54,34 @@ def no_cuda(monkeypatch):
 
 def _entry_points():
     from tpusysbio_torch import convert, default_device
+    from tpusysbio_torch.data import (Experiment, ExperimentBatch,
+                                      Measurement)
     from tpusysbio_torch.model import library
+    from tpusysbio_torch.project import ParameterMap
 
     model = library.mapk_huang_ferrell(device="cpu")
     p = np.asarray(library.mapk_true_params(device="cpu"))[None]
     net = library._mapk_network(device="cpu")
+    t = np.array([1.0, 2.0])
+    exps = [Experiment("x", (Measurement(0, t, t, t),))]
+    batch = ExperimentBatch.from_experiments(exps, device="cpu")
+    pmap = ParameterMap.create(["a", "b"], 1, shared=("a",),
+                               fixed={"b": 1.0}, device="cpu")
+
+    def fields(obj):
+        return {f.name: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                for f in dataclasses.fields(obj)
+                for v in [getattr(obj, f.name)]}
+
     return {
+        "ExperimentBatch.from_experiments":
+            lambda: ExperimentBatch.from_experiments(exps),
+        "ParameterMap.create": lambda: ParameterMap.create(
+            ["a", "b"], 1, shared=("a",), fixed={"b": 1.0}),
+        "convert.batch_from_reference":
+            lambda: convert.batch_from_reference(fields(batch)),
+        "convert.pmap_from_reference":
+            lambda: convert.pmap_from_reference(fields(pmap)),
         "default_device": default_device,
         "library.mapk_huang_ferrell": library.mapk_huang_ferrell,
         "library.mapk_true_params": library.mapk_true_params,
@@ -76,11 +99,22 @@ def _entry_points():
     "default_device", "library.mapk_huang_ferrell",
     "library.mapk_true_params", "convert.network_from_numpy",
     "convert.params_from_numpy", "OdeModel.simulate",
-    "OdeModel.simulate_sensitivities"])
+    "OdeModel.simulate_sensitivities", "ExperimentBatch.from_experiments",
+    "ParameterMap.create", "convert.batch_from_reference",
+    "convert.pmap_from_reference"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA"):
         fn()
+
+
+def test_port_files_cover_the_fit_subpackages():
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for sub in ("data/experiment.py", "project/residuals.py",
+                "project/mapping.py", "project/scale_factors.py",
+                "optim/lm.py", "fit/multistart.py", "fit/sampling.py",
+                "convert.py", "linalg/gpu_lu.py"):
+        assert f"tpusysbio_torch/{sub}" in rel
 
 
 def test_explicit_cpu_runs_without_cuda(no_cuda):

@@ -1,11 +1,11 @@
-"""Frozen solver configuration, field for field with ``tpusysbio/config.py``.
+"""Frozen solver and fit configurations, field for field with
+``tpusysbio/config.py``.
 
 Same names, defaults and ``__post_init__`` checks as the reference's
-``SolverConfig`` (``tpusysbio/config.py:21-117``), so a configuration means
-the same thing in both packages. ``linear_solver='pallas'`` keeps its name:
-in the port it selects the hand-written CUDA kernels of
-``linalg/gpu_lu.py``. ``FitConfig`` and ``MeshConfig`` come with the fit
-slice.
+``SolverConfig`` and ``FitConfig``, so a configuration means the same thing
+in both packages. ``linear_solver='pallas'`` keeps its name: in the port it
+selects the hand-written CUDA kernels of ``linalg/gpu_lu.py``.
+``MeshConfig`` comes with the sharded slice.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ class SolverConfig:
     max_step: float = float("inf")
     # Include sensitivity columns in the local error norm.
     sens_error_control: bool = False
-    # f32 hot loop with f64 step control (not ported yet: raises).
+    # f32 hot loop (RHS, Jacobian, solves, storage) with f64 time and step
+    # control: the screening mode.
     mixed_precision: bool = False
     # 'full' or 'f32': precision of the sensitivity columns only.
     sens_precision: str = "full"
@@ -64,3 +65,31 @@ class SolverConfig:
                 f"unknown sens_precision {self.sens_precision!r}")
         if self.dense_window != 0 and self.dense_window < 2:
             raise ValueError("dense_window must be 0 (off) or >= 2")
+
+
+@dataclasses.dataclass(frozen=True)
+class FitConfig:
+    """Levenberg-Marquardt fit configuration.
+
+    Tolerances follow ``scipy.optimize.least_squares``: relative cost
+    reduction (ftol), relative step size (xtol), gradient norm (gtol).
+    """
+
+    ftol: float = 1e-8
+    xtol: float = 1e-8
+    gtol: float = 1e-8
+    max_iter: int = 100
+    # initial LM damping and its adaptation bounds
+    lam0: float = 1e-3
+    lam_min: float = 1e-12
+    lam_max: float = 1e12
+    # 'economical': residual-only trial integration, Jacobian recomputed
+    #   only on acceptance. A batch integrates every member either way, so
+    #   this pays trial + sensitivity integrations per iteration.
+    # 'lockstep': residual and Jacobian together at every trial: one
+    #   sensitivity integration per iteration, the mode for ensembles.
+    eval_mode: str = "economical"
+
+    def __post_init__(self):
+        if self.eval_mode not in ("economical", "lockstep"):
+            raise ValueError(f"unknown eval_mode {self.eval_mode!r}")

@@ -1,20 +1,25 @@
-"""Carry a model across from the JAX package's numpy form.
+"""Carry a model and a fit problem across from the JAX package's numpy
+form.
 
 Here the "weights" of a model are its rate-constant vector ``p`` and the
-network's integer matrices. Both arrive as numpy arrays (for instance the
-fields of a ``tpusysbio`` ``MassActionNetwork``, or a parameter array that
-a JAX caller holds), so this module never imports the JAX package.
+network's integer matrices; the state of a fit problem is the fields of its
+``ExperimentBatch`` and ``ParameterMap``. All arrive as numpy arrays (the
+caller does the ``np.asarray`` on the fields of the ``tpusysbio`` objects),
+so this module never imports the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from tpusysbio_torch import resolve_device
+from tpusysbio_torch.data.experiment import ExperimentBatch
 from tpusysbio_torch.model.massaction import MassActionNetwork
+from tpusysbio_torch.project.mapping import ParameterMap
 
 
 def network_from_numpy(species: Sequence[str],
@@ -43,3 +48,42 @@ def params_from_numpy(p, device="cuda") -> torch.Tensor:
     if arr.ndim not in (1, 2):
         raise ValueError(f"p must be (m,) or (B, m); got {arr.shape}")
     return torch.as_tensor(arr, device=resolve_device(device))
+
+
+def _tensor_fields(cls, arrays: Mapping, dev):
+    """``arrays`` restricted to ``cls``'s fields: numpy arrays become
+    tensors on ``dev`` (dtypes kept), plain values pass through, ``None``
+    fields are dropped so that the defaults apply."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(arrays) - names
+    if unknown:
+        raise ValueError(f"{cls.__name__}: unknown fields {sorted(unknown)}")
+    out = {}
+    for k, v in arrays.items():
+        if v is None:
+            continue
+        # a copy: the caller's arrays may be read-only views
+        out[k] = (torch.as_tensor(np.array(v), device=dev)
+                  if isinstance(v, np.ndarray) else v)
+    return out
+
+
+def batch_from_reference(arrays: Mapping, device="cuda") -> ExperimentBatch:
+    """The port's ``ExperimentBatch`` from the reference object's fields:
+    ``{field name: numpy array or static value}``, for instance
+    ``{f.name: to_numpy(getattr(ref_batch, f.name)) for f in fields}``."""
+    kw = _tensor_fields(ExperimentBatch, arrays, resolve_device(device))
+    for k in ("n_groups", "n_segments"):
+        if k in kw:
+            kw[k] = int(kw[k])
+    kw["group_names"] = tuple(kw.get("group_names", ()))
+    return ExperimentBatch(**kw)
+
+
+def pmap_from_reference(arrays: Mapping, device="cuda") -> ParameterMap:
+    """The port's ``ParameterMap`` from the reference object's fields
+    (``map_idx``, ``fixed``, ``n_global``, ``theta_names``)."""
+    kw = _tensor_fields(ParameterMap, arrays, resolve_device(device))
+    kw["n_global"] = int(kw["n_global"])
+    kw["theta_names"] = tuple(kw.get("theta_names", ()))
+    return ParameterMap(**kw)

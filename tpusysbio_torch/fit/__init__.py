@@ -1,0 +1,13 @@
+"""Multi-start fitting (``tpusysbio/fit``'s names, for what is ported)."""
+
+from tpusysbio_torch.fit.multistart import (MultistartResult,
+                                            TwoPhaseDriver,
+                                            make_multistart_runner,
+                                            multistart_fit,
+                                            multistart_two_phase,
+                                            run_chunked)
+from tpusysbio_torch.fit.sampling import latin_hypercube, uniform_starts
+
+__all__ = ["MultistartResult", "TwoPhaseDriver", "latin_hypercube",
+           "make_multistart_runner", "multistart_fit",
+           "multistart_two_phase", "run_chunked", "uniform_starts"]

@@ -34,6 +34,7 @@ _I = ctypes.c_int
 # C entry points: name -> argument types; each returns a cudaError_t.
 _SIGNATURES = {
     "tsb_gj_inverse_f32": (_P, _P, _I, _I, _P),
+    "tsb_gj_inverse_major_f32": (_P, _P, _I, _I, _P),
     "tsb_refine_solve": (_P, _P, _P, _P, _I, _I, _P),
 }
 

@@ -1,12 +1,15 @@
 """Batched Newton-matrix inverse and refined solve on the GPU.
 
-Counterpart of ``tpusysbio/linalg/pallas_lu.py``. Two hand-written CUDA
-kernels (``linalg/csrc/``) replace its two TPU kernels on the main path:
+Counterpart of ``tpusysbio/linalg/pallas_lu.py``. Three hand-written CUDA
+kernels (``linalg/csrc/``) replace its three TPU kernels:
 
-- ``gj_inverse_f32`` (``csrc/gj_inverse.cu``) replaces
-  ``_gj_batched_kernel``: a batched f32 Gauss-Jordan inverse with partial
-  pivoting, the factorization of every Newton matrix ``I - cJ``;
-- ``refine_solve`` (``csrc/refine_solve.cu``) replaces
+- K1 (``csrc/gj_inverse.cu``) replaces ``_gj_batched_kernel``: a batched
+  f32 Gauss-Jordan inverse with partial pivoting, the factorization of
+  every Newton matrix ``I - cJ``; one thread block per matrix;
+- K3 (``csrc/gj_inverse_major.cu``) replaces ``_gj_batch_major_kernel``:
+  the same function, one warp per matrix; ``gj_inverse_f32`` launches it in
+  K1's place when ``TPUSYSBIO_GJ_LAYOUT=major``, the reference's switch;
+- K2, ``refine_solve`` (``csrc/refine_solve.cu``), replaces
   ``_make_refine_kernel``: the f64 solve of one column from the f32
   inverse with three rounds of iterative refinement.
 
@@ -24,6 +27,8 @@ so that results stay comparable with the reference.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from tpusysbio_torch.linalg import _build
@@ -34,7 +39,12 @@ _REFINE_STEPS = 3
 
 # Kernel launches per wrapper; a run resets these to 0 and reads them back
 # to show which kernels it went through.
-LAUNCHES = {"gj_inverse_f32": 0, "refine_solve": 0}
+LAUNCHES = {"gj_inverse_f32": 0, "refine_solve": 0,
+            "gj_inverse_major_f32": 0}
+
+# Which Gauss-Jordan kernel ``gj_inverse_f32`` launches: 'minor' (K1) or
+# 'major' (K3), read once at import as the reference reads it.
+_LAYOUT = os.environ.get("TPUSYSBIO_GJ_LAYOUT", "minor")
 
 
 def reset_launches():
@@ -60,13 +70,13 @@ def _stream(t):
 
 
 # --------------------------------------------------------------------------
-# K1: batched f32 Gauss-Jordan inverse
+# K1 and K3: batched f32 Gauss-Jordan inverse
 # --------------------------------------------------------------------------
 
 def gj_inverse_f32_plain(a: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of the K1 kernel: Gauss-Jordan with partial
-    pivoting on (B, n, n) f32, pivot = first row reaching the column
-    maximum (``argmax``), zero pivots replaced by ±1e-30."""
+    """Plain PyTorch twin of the K1 and K3 kernels: Gauss-Jordan with
+    partial pivoting on (B, n, n) f32, pivot = first row reaching the
+    column maximum (``argmax``), zero pivots replaced by ±1e-30."""
     B, n = a.shape[0], a.shape[-1]
     A = a.clone()
     X = torch.eye(n, dtype=a.dtype, device=a.device).repeat(B, 1, 1)
@@ -92,24 +102,33 @@ def gj_inverse_f32_plain(a: torch.Tensor) -> torch.Tensor:
     return X
 
 
+# K1 and K3 are one function, so they share one plain version: one body,
+# two names, and no second copy of the arithmetic that could drift.
+gj_inverse_major_f32_plain = gj_inverse_f32_plain
+
+
 def gj_inverse_f32(a: torch.Tensor) -> torch.Tensor:
     """Batched f32 inverse of ``a`` (B, n, n), n <= ``MAX_KERNEL_N``.
 
-    CUDA tensors launch the K1 kernel (``csrc/gj_inverse.cu``); CPU tensors
-    run :func:`gj_inverse_f32_plain`."""
+    CUDA tensors launch K3 (``csrc/gj_inverse_major.cu``) when the
+    module's ``_LAYOUT`` is ``'major'`` and K1 (``csrc/gj_inverse.cu``)
+    otherwise. CPU tensors run :func:`gj_inverse_f32_plain`."""
     if a.device.type == "cpu":
         return gj_inverse_f32_plain(a)
+    name = ("gj_inverse_major_f32" if _LAYOUT == "major"
+            else "gj_inverse_f32")
     B, n = a.shape[0], a.shape[-1]
     if a.ndim != 3 or n > MAX_KERNEL_N:
-        raise ValueError(f"gj_inverse_f32: expected (B, n, n) with n <= "
+        raise ValueError(f"{name}: expected (B, n, n) with n <= "
                          f"{MAX_KERNEL_N}, got {tuple(a.shape)}")
-    _check_cuda("gj_inverse_f32", a, torch.float32, (B, n, n))
+    _check_cuda(name, a, torch.float32, (B, n, n))
     out = torch.empty_like(a)
-    err = _build.load().tsb_gj_inverse_f32(a.data_ptr(), out.data_ptr(), B,
-                                           n, _stream(a))
+    err = getattr(_build.load(), "tsb_" + name)(a.data_ptr(),
+                                                out.data_ptr(), B, n,
+                                                _stream(a))
     if err != 0:
-        raise RuntimeError(f"gj_inverse_f32 launch failed: cudaError {err}")
-    LAUNCHES["gj_inverse_f32"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
     return out
 
 
@@ -144,7 +163,8 @@ def _large_n_inverse(a: torch.Tensor) -> torch.Tensor:
 
 def _schur_inverse(a: torch.Tensor) -> torch.Tensor:
     """(B, n, n) f32 inverse for MAX_KERNEL_N < n <= 2*MAX_KERNEL_N by one
-    level of block-Schur elimination, with K1 on both diagonal blocks.
+    level of block-Schur elimination, with the Gauss-Jordan kernel of the
+    current layout on both diagonal blocks.
     Members whose residual ``‖I - AX‖∞`` is not below 0.5 (a near-singular
     leading block) are poisoned with NaN, as in the reference."""
     n1 = MAX_KERNEL_N

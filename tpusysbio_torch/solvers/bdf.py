@@ -26,10 +26,17 @@ dimension B, and the reference's batching semantics are written out:
 
 The column block is a tuple of PARTS with their own dtypes: with
 ``sens_precision='f32'`` the state column (error control, dense output)
-stays f64 and the sensitivity columns live entirely in f32.
+stays f64 and the sensitivity columns live entirely in f32. With
+``mixed_precision`` (the screening mode) the whole block is one f32 part:
+RHS, Jacobian, factorization, solves, difference arrays and dense output
+run in f32, while time, step size, the error norm's comparison and the
+order logic stay f64.
 
-Not ported yet (raise ``NotImplementedError``): ``mixed_precision``,
-``events``, ``dense_export`` and ``dense_window``.
+Each member has its own interval and output grid: ``t_span`` ends may be
+floats or (B,) tensors, ``t_eval`` is (T,) or (B, T).
+
+Not ported yet (raise ``NotImplementedError``): ``events``,
+``dense_export`` and ``dense_window``.
 """
 
 from __future__ import annotations
@@ -147,9 +154,11 @@ def bdf_solve(
     Args:
       f: batched RHS ``f(t, y) -> (B, n)`` with ``t`` (B,), ``y`` (B, n);
         parameters closed over; must follow the dtype of ``y``.
-      t_span: ``(t0, t1)`` floats with ``t1 > t0``, shared by the batch.
+      t_span: ``(t0, t1)`` with ``t1 > t0``; each end a float shared by
+        the batch or a (B,) tensor of per-member times.
       y0: initial states (B, n).
-      t_eval: sorted output times (T,) within ``[t0, t1]``.
+      t_eval: sorted output times within ``[t0, t1]``: (T,) shared by the
+        batch, or (B, T) per member.
       config: solver configuration.
       sens_rhs: optional ``(t, y, S) -> (B, n, m)`` forward-sensitivity
         RHS; requires ``s0`` (B, n, m).
@@ -162,20 +171,32 @@ def bdf_solve(
     if events is not None or dense_export:
         raise NotImplementedError(
             "bdf_solve: events and dense_export are not ported yet")
-    if config.mixed_precision:
-        raise NotImplementedError(
-            "bdf_solve: mixed_precision is not ported yet")
-    if 0 < int(config.dense_window) < t_eval.shape[0]:
-        raise NotImplementedError(
-            "bdf_solve: dense_window is not ported yet")
     dtype = y0.dtype
     dev = y0.device
     B, n = y0.shape
     t_eval = torch.as_tensor(t_eval, dtype=dtype, device=dev)
-    T = t_eval.shape[0]
+    if t_eval.ndim == 1:
+        t_eval = t_eval[None, :].expand(B, -1)
+    if t_eval.ndim != 2 or t_eval.shape[0] != B:
+        raise ValueError(f"t_eval must be (T,) or ({B}, T); got "
+                         f"{tuple(t_eval.shape)}")
+    T = t_eval.shape[1]
+    if 0 < int(config.dense_window) < T:
+        raise NotImplementedError(
+            "bdf_solve: dense_window is not ported yet")
     kw = dict(dtype=dtype, device=dev)
-    t0 = torch.full((B,), float(t_span[0]), **kw)
-    t_bound = torch.full((B,), float(t_span[1]), **kw)
+
+    def member_times(x):
+        x = torch.as_tensor(x, **kw)
+        if x.ndim == 0:
+            return x.expand(B).clone()
+        if tuple(x.shape) != (B,):
+            raise ValueError(f"t_span ends must be floats or ({B},) "
+                             f"tensors; got {tuple(x.shape)}")
+        return x
+
+    t0 = member_times(t_span[0])
+    t_bound = member_times(t_span[1])
 
     if sens_rhs is not None:
         if s0 is None:
@@ -198,10 +219,31 @@ def bdf_solve(
                                              config.jac_bandwidth)
 
     f32 = torch.float32
-    split = (config.sens_precision == "f32" and m > 0
+    # Mixed-precision hot loop: RHS/Jacobian/solves and the storage of the
+    # whole column block in f32, time and step control in f64.
+    mp = config.mixed_precision and dtype == torch.float64
+    cdt = f32 if mp else dtype
+    if mp:
+        def jac_c(t, y):
+            return jac(t, y.to(cdt)).to(cdt)
+
+        def factor_c(a):
+            return factor_fn(a.to(cdt))
+
+        def solve_c(fact, b):
+            return solve_fn(fact, b.to(cdt))
+
+        def f_c(t, y):
+            return f(t.to(cdt), y.to(cdt))
+    else:
+        jac_c, factor_c, solve_c, f_c = jac, factor_fn, solve_fn, f
+
+    split = (config.sens_precision == "f32" and m > 0 and not mp
              and dtype == torch.float64 and not config.sens_error_control)
     if split:
         parts = ((1, dtype), (m, f32))
+    elif mp:
+        parts = ((1 + m, f32),)
     else:
         parts = ((1 + m, dtype),)
 
@@ -213,7 +255,7 @@ def bdf_solve(
 
     if m == 0:
         def faug_b(t, Yb):
-            return (f(t, Yb[0][..., 0])[..., None],)
+            return (f_c(t, Yb[0][..., 0])[..., None],)
     elif split:
         def faug_b(t, Yb):
             y = Yb[0][..., 0]
@@ -223,8 +265,9 @@ def bdf_solve(
         def faug_b(t, Yb):
             Y = Yb[0]
             y = Y[..., 0]
-            return (torch.cat([f(t, y)[..., None],
-                               sens_rhs(t, y, Y[..., 1:])], dim=-1),)
+            tc = t.to(cdt)   # storage is already f32 under mixed_precision
+            return (torch.cat([f(tc, y)[..., None],
+                               sens_rhs(tc, y, Y[..., 1:])], dim=-1),)
 
     gamma, alpha, error_const = _ndf_constants(dtype, dev)
     eps = torch.finfo(dtype).eps
@@ -243,9 +286,9 @@ def bdf_solve(
     if split:
         Y0b = (y0[..., None], s0.to(f32))
     elif m:
-        Y0b = (torch.cat([y0[..., None], s0.to(dtype)], dim=-1),)
+        Y0b = (torch.cat([y0[..., None], s0.to(dtype)], dim=-1).to(cdt),)
     else:
-        Y0b = (y0[..., None],)
+        Y0b = (y0[..., None].to(cdt),)
     F0b = faug_b(t0, Y0b)
     f0 = F0b[0][..., 0].to(dtype)
     if config.debug_checks and not bool(torch.isfinite(f0).all()):
@@ -265,12 +308,12 @@ def bdf_solve(
         D[:, 1] = F0p * _bcast(h0.to(Y0p.dtype), F0p)
         return D
 
-    at_t0 = (t_eval == t0[0])[None, :, None, None]
+    at_t0 = (t_eval == t0[:, None])[:, :, None, None]
     i32 = dict(dtype=torch.int32, device=dev)
     st = dict(
         t=t0, h_abs=h0, order=torch.ones(B, dtype=torch.int64, device=dev),
         D=tuple(d_init(Yp, Fp) for Yp, Fp in zip(Y0b, F0b)),
-        J=jac(t0, y0), fact=None,
+        J=jac_c(t0, y0), fact=None,
         lu_valid=torch.zeros(B, dtype=torch.bool, device=dev),
         current_jac=torch.zeros(B, dtype=torch.bool, device=dev),
         last_accepted=torch.ones(B, dtype=torch.bool, device=dev),
@@ -289,7 +332,7 @@ def bdf_solve(
     )
 
     def interp_part(Dp, tv, t_new, h_new, order_new):
-        """BdfDenseOutput of part ``Dp`` at times ``tv`` (T,) ->
+        """BdfDenseOutput of part ``Dp`` at times ``tv`` (B, T) ->
         (B, T, n, k). With ``dense_f32`` the correction on top of the exact
         D[0] anchor runs in f32."""
         dt = Dp.dtype
@@ -298,7 +341,7 @@ def bdf_solve(
         t_shift = t_new[:, None] - h_new[:, None] * jj
         denom = h_new[:, None] * (1.0 + jj)
         # form x in f64 (the time differences cancel), then the polynomial
-        x = (tv[None, :, None] - t_shift[:, None, :]) / denom[:, None, :]
+        x = (tv[:, :, None] - t_shift[:, None, :]) / denom[:, None, :]
         # running product left to right, as the reference's cumprod (a
         # CPU torch.cumprod associates differently and rounds elsewhere)
         xc = x.to(cdt)
@@ -362,7 +405,7 @@ def bdf_solve(
         # --- factorization (reused while SciPy would reuse it) ---
         fact = st["fact"]
         if bool((running & ~lu_valid).any()):
-            new = factor_fn(I_n - c[:, None, None] * st["J"].to(dtype))
+            new = factor_c(I_n - c[:, None, None] * st["J"].to(dtype))
             fact = new if fact is None else _where(lu_valid, fact, new)
         nlu = st["nlu"] + (~lu_valid).to(torch.int32)
         fact32 = _fact32(fact) if split else None
@@ -387,9 +430,9 @@ def bdf_solve(
             resid = tuple(_bcast(cb, Fp) * Fp - pp - dp
                           for cb, Fp, pp, dp in zip(c_b, Fv, psi, d))
             if split:
-                dy = (solve_fn(fact, resid[0]), solve_fn(fact32, resid[1]))
+                dy = (solve_c(fact, resid[0]), solve_fn(fact32, resid[1]))
             else:
-                dy = (solve_fn(fact, resid[0]),)
+                dy = (solve_c(fact, resid[0]),)
             dy_norm = rms_norm(dy[0][..., 0] / scale_state)
             rate = dy_norm / torch.where(dy_norm_old > 0, dy_norm_old, one)
             have_rate = it > 0
@@ -418,7 +461,7 @@ def bdf_solve(
         case_C = ~converged & st["current_jac"]
         J = st["J"]
         if bool((case_B & running).any()):
-            J = _where(case_B, jac(t_new, y_predict[0][..., 0]), J)
+            J = _where(case_B, jac_c(t_new, y_predict[0][..., 0]), J)
         njev = st["njev"] + case_B.to(torch.int32)
 
         safety = (config.safety * (2 * NEWTON_MAXITER + 1)

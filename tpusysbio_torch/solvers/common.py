@@ -91,11 +91,13 @@ def status_init(t0, t_bound):
 def interp_accumulate(t_eval, t_old, t_new, interp_fn, ys_acc):
     """Fold dense output into the ``t_eval`` accumulator after a step.
 
-    ``t_eval`` is (T,), ``t_old``/``t_new`` (B,);
-    ``interp_fn(t_eval) -> (B, T, ...)``; ``ys_acc`` is (B, T, ...). Points
-    with ``t_old < t <= t_new`` take the interpolant's value."""
-    mask = (t_eval[None, :] > t_old[:, None]) & (t_eval[None, :]
-                                                  <= t_new[:, None])
+    ``t_eval`` is (T,) shared by the batch or (B, T) per member,
+    ``t_old``/``t_new`` (B,); ``interp_fn(t_eval) -> (B, T, ...)`` takes
+    the (B, T) grid; ``ys_acc`` is (B, T, ...). Points with
+    ``t_old < t <= t_new`` take the interpolant's value."""
+    if t_eval.ndim == 1:
+        t_eval = t_eval[None, :].expand(t_old.shape[0], -1)
+    mask = (t_eval > t_old[:, None]) & (t_eval <= t_new[:, None])
     vals = interp_fn(t_eval)
     mask_b = mask.reshape(mask.shape + (1,) * (ys_acc.ndim - 2))
     return torch.where(mask_b, vals, ys_acc)
