@@ -10,20 +10,24 @@ It builds the port's CUDA kernels from ``tpusysbio_torch/linalg/csrc/``
 first failed check:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
-2. build: the kernels' build time and the compiler's register report;
-3. K1 (``gj_inverse_f32``) against its plain PyTorch version on MAPK-22
-   Newton matrices ``I - cJ`` at n=22 and the batches the paths give it
-   (B=256: the main path and the fit's screen; B=16: the fit's polish),
-   on random Newton-shaped matrices at n=64, and ``inverse()`` through
-   block-Schur at n=97;
+2. build: the kernels' build time and the compiler's report per kernel
+   (registers, stack, spills); a kernel that spills fails the run;
+3. K1 (``gj_inverse_f32``, a matrix in a warp's registers) against its
+   plain PyTorch version on MAPK-22 Newton matrices ``I - cJ`` at n=22
+   and the batches the paths give it (B=256: the main path and the fit's
+   screen; B=16: the fit's polish), on random Newton-shaped matrices at
+   n=64, and ``inverse()`` through block-Schur at n=97; timed at B=16, 64,
+   256 and 1024;
 4. K2 (``refine_solve``) against its plain version and against
    ``torch.linalg.solve`` at n=22, B=256 (the main path) and B=16 (the
-   fit's polish), and at n=64, f64;
-5. K3 (the batch-major ``gj_inverse_f32``, one warp per matrix) against
-   the same plain version and against K1's output at n=22, B=256, B=64
-   (the batch of phase 8, the path that launches it) and B=1024, at
-   n=64, through block-Schur at n=97 under the ``major`` layout, and on a
-   NaN and a singular matrix;
+   fit's polish), and at n=64, f64; timed at B=16, 64, 256 and 1024;
+5. K3 (the batch-major ``gj_inverse_f32``, a shared-memory tile per warp)
+   against the same plain version, and bit for bit against K1's output,
+   at n=22, B=256, B=64 (the batch of phase 8, the path that launches it)
+   and B=1024, at n=64, 33, 32 and 1, on general matrices that exchange
+   rows, through block-Schur at n=97 under the ``major`` layout, and on a
+   NaN and a singular matrix; then the launch floor (``[floor]``): an
+   empty kernel through the same launch route at grids of 16 and 256;
 6. the main path of the first slice: the ``bench.py`` contract (MAPK-22,
    BDF with all 30 forward sensitivities, rtol=1e-6, atol=1e-9,
    ``sens_precision='f32'``, ``dense_f32``, ``linear_solver='pallas'``,
@@ -50,7 +54,9 @@ read just after. The lines before the last are a ``{"kernels": [...]}``
 JSON object (per kernel: launches on those paths, error against its plain
 version, its time, the plain version's, the least time the card could take
 and the library call's) and the card's name and power limit. The last line
-is ``{"ok": true, "device": {...}}``. Library calls (``torch.linalg.inv``,
+is ``{"ok": true, "device": {...}}``. The floor is context for the bounds
+(no one-launch kernel goes below it) and is not in the kernels' line.
+Library calls (``torch.linalg.inv``,
 ``torch.linalg.solve``) are timed here as yardsticks only; the port never
 calls them.
 
@@ -104,35 +110,30 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-_BLOCKER = []
+TIMED_BATCHES = (16, 64, 256, 1024)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3, queued: bool = True) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events over ``reps``.
+    """Mean device time of ``fn()`` in ms by CUDA events: from a queue
+    behind ~60 ms of device work (``queued``), or at the host's launch
+    pace."""
+    from tpusysbio_torch.linalg.timing import cuda_ms as timed
 
-    With ``queued`` the calls are enqueued behind three large matrix
-    products (~60 ms of device work), so short kernels run back to back
-    from the queue and the figure is device time. Without it they run at
-    the pace the host launches them, which for a kernel of a few tens of
-    microseconds measures the wrapper's host time instead."""
-    import torch
+    return timed(fn, reps, warmup=warmup, queued=queued)
 
-    for _ in range(warmup):
-        fn()
-    if queued and not _BLOCKER:
-        _BLOCKER.append(torch.ones((8192, 8192), device="cuda"))
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    if queued:
-        for _ in range(3):
-            _BLOCKER[0] @ _BLOCKER[0]
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+
+def times_by_batch(make_call):
+    """Queued and host-paced ms of ``make_call(B)()`` per timed batch."""
+    queued, paced = {}, {}
+    for B in TIMED_BATCHES:
+        call = make_call(B)
+        queued[B] = cuda_ms(call, reps=200)
+        paced[B] = cuda_ms(call, reps=200, queued=False)
+    return queued, paced
+
+
+def fmt_by_batch(ms):
+    return ", ".join(f"B={B} {t:.4f}" for B, t in ms.items())
 
 
 def bound_ms(nbytes: float, t_ops: float):
@@ -200,9 +201,12 @@ def phase_build():
     secs = time.perf_counter() - t0
     print(f"[build] kernels built and loaded in {secs:.2f} s "
           f"(cached={_build.build_info.get('cached')})", flush=True)
-    for line in _build.build_info.get("log", "").splitlines():
-        if line.startswith("==") or "registers" in line or "Compiling" in line:
-            print(f"[build]   {line.strip()}")
+    for r in _build.resource_report(_build.build_info.get("log", "")):
+        print(f"[build]   {r['source']} {r['kernel']}: {r['registers']} "
+              f"registers, stack frame {r['stack']} B, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"build: {r['kernel']} spills registers")
     return secs
 
 
@@ -241,26 +245,32 @@ def phase_k1(model, rng):
     print(f"[K1] n97 (block-Schur, K1 on both blocks): B=16 "
           f"||XA-I||inf {res:.3e} (bound 1e-11)", flush=True)
 
-    # timing at the shape of [main] and the screen, then at the polish's
-    a32 = a22.to(torch.float32).contiguous()
-    a32_polish = a22_polish.to(torch.float32).contiguous()
+    # timing at n=22: B=256 is [main]'s and the screen's batch, B=16 the
+    # polish's, B=64 [fit-major]'s
     n = 22
-    ms = cuda_ms(lambda: gpu_lu.gj_inverse_f32(a32), reps=200)
-    paced_ms = cuda_ms(lambda: gpu_lu.gj_inverse_f32(a32), reps=200,
-                       queued=False)
-    ms_polish = cuda_ms(lambda: gpu_lu.gj_inverse_f32(a32_polish), reps=200)
+    by_batch = {BATCH: a22.to(torch.float32).contiguous(),
+                POLISH_BATCH: a22_polish.to(torch.float32).contiguous()}
+    for B in TIMED_BATCHES:
+        if B not in by_batch:
+            by_batch[B] = random_newton(rng, B, n).to(torch.float32)
+    a32 = by_batch[BATCH]
+    ms_q, ms_h = times_by_batch(
+        lambda B: lambda: gpu_lu.gj_inverse_f32(by_batch[B]))
+    ms = ms_q[BATCH]
     plain_ms = cuda_ms(lambda: gpu_lu.gj_inverse_f32_plain(a32), reps=10)
     lib_ms = cuda_ms(lambda: torch.linalg.inv(a32), reps=200)
     nbytes = 2 * BATCH * n * n * 4
-    ops = BATCH * n * (2 * n + 4 * n * (n - 1))
+    # in place: per pivot step n divisions and (n-1) rows of n
+    # multiply-adds
+    ops = BATCH * n * (n + 2 * n * (n - 1))
     b_ms, b_by = bound_ms(nbytes, ops / F32_FLOPS)
-    print(f"[K1] B={BATCH} n=22: kernel {ms:.4f} ms from the queue "
-          f"({paced_ms:.4f} ms at the host's launch pace), plain "
+    print(f"[K1] n=22 kernel ms from the queue: {fmt_by_batch(ms_q)}; at "
+          f"the host's launch pace: {fmt_by_batch(ms_h)}", flush=True)
+    print(f"[K1] B={BATCH} n=22: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, torch.linalg.inv {lib_ms:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by}); at B={POLISH_BATCH}: kernel "
-          f"{ms_polish:.4f} ms from the queue", flush=True)
+          f"{b_ms:.6f} ms ({b_by})", flush=True)
     return dict(name="gj_inverse_f32", route="cuda",
-                ms_by_batch={BATCH: ms, POLISH_BATCH: ms_polish},
+                ms_by_batch=ms_q, host_paced_ms_by_batch=ms_h,
                 max_abs_err_by_case={k: v["abs"] for k, v in rows.items()},
                 source="tpusysbio_torch/linalg/csrc/gj_inverse.cu",
                 replaces="tpusysbio/linalg/pallas_lu.py:104",
@@ -296,12 +306,17 @@ def phase_k2(model, rng):
               f"(bound 1e-12)", flush=True)
         out[n, B] = (x32, a, b, float((got - ref).abs().max()))
     n = 22
-    xp, ap, bp, _ = out[n, POLISH_BATCH]
-    ms_polish = cuda_ms(lambda: gpu_lu.refine_solve(xp, ap, bp), reps=200)
+    by_batch = {B: out[n, B][:3] for B in (BATCH, POLISH_BATCH)}
+    for B in TIMED_BATCHES:
+        if B not in by_batch:
+            a = random_newton(rng, B, n)
+            by_batch[B] = (gpu_lu.inverse(a.to(torch.float32)), a,
+                           torch.as_tensor(rng.standard_normal((B, n)),
+                                           device="cuda"))
+    ms_q, ms_h = times_by_batch(
+        lambda B: lambda: gpu_lu.refine_solve(*by_batch[B]))
     x32, a, b, abs_err = out[n, BATCH]
-    ms = cuda_ms(lambda: gpu_lu.refine_solve(x32, a, b), reps=200)
-    paced_ms = cuda_ms(lambda: gpu_lu.refine_solve(x32, a, b), reps=200,
-                       queued=False)
+    ms = ms_q[BATCH]
     plain_ms = cuda_ms(lambda: gpu_lu.refine_solve_plain(x32, a, b),
                        reps=50)
     lib_ms = cuda_ms(lambda: torch.linalg.solve(a, b), reps=50)
@@ -309,13 +324,13 @@ def phase_k2(model, rng):
     # 4 f32 mat-vecs at the f32 rate, 3 f64 mat-vecs at the f64 rate
     t_ops = BATCH * 2 * n * n * (4 / F32_FLOPS + 3 / F64_FLOPS)
     b_ms, b_by = bound_ms(nbytes, t_ops)
-    print(f"[K2] B={BATCH} n=22: kernel {ms:.4f} ms from the queue "
-          f"({paced_ms:.4f} ms at the host's launch pace), plain "
+    print(f"[K2] n=22 kernel ms from the queue: {fmt_by_batch(ms_q)}; at "
+          f"the host's launch pace: {fmt_by_batch(ms_h)}", flush=True)
+    print(f"[K2] B={BATCH} n=22: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, torch.linalg.solve {lib_ms:.4f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by}); at B={POLISH_BATCH}: kernel "
-          f"{ms_polish:.4f} ms from the queue", flush=True)
+          f"{b_ms:.6f} ms ({b_by})", flush=True)
     return dict(name="refine_solve", route="cuda",
-                ms_by_batch={BATCH: ms, POLISH_BATCH: ms_polish},
+                ms_by_batch=ms_q, host_paced_ms_by_batch=ms_h,
                 max_abs_err_by_case={f"n{k[0]} B={k[1]}": v[3]
                                      for k, v in out.items()},
                 source="tpusysbio_torch/linalg/csrc/refine_solve.cu",
@@ -325,8 +340,9 @@ def phase_k2(model, rng):
 
 
 def phase_k3(model, rng):
-    """K3, the one-warp-per-matrix Gauss-Jordan kernel, against the plain
-    version it shares with K1, and against K1 itself."""
+    """K3, the Gauss-Jordan kernel over a shared-memory tile per warp,
+    against the plain version it shares with K1, and bit for bit against
+    K1 (the matrix in registers)."""
     import torch
 
     from tpusysbio_torch.linalg import gpu_lu
@@ -345,7 +361,10 @@ def phase_k3(model, rng):
         torch.float32).contiguous()
     cases = (("n22", a22), ("n22 fit-major", a22_major),
              ("n22 large", random_newton(rng, 1024, 22).to(torch.float32)),
-             ("n64", random_newton(rng, BATCH, 64).to(torch.float32)))
+             ("n64", random_newton(rng, BATCH, 64).to(torch.float32)),
+             ("n33", random_newton(rng, 33, 33).to(torch.float32)),
+             ("n32", random_newton(rng, 5, 32).to(torch.float32)),
+             ("n1", random_newton(rng, 7, 1).to(torch.float32)))
     abs_by_case = {}
     for name, a32 in cases:
         before = gpu_lu.LAUNCHES["gj_inverse_major_f32"]
@@ -359,15 +378,30 @@ def phase_k3(model, rng):
         check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite")
         abs_err = float((got - ref).abs().max())
         rel = abs_err / float(ref.abs().max())
-        vs_k1 = float((got - other).abs().max())
         check(abs_err <= 1e-5,
               f"K3 {name}: max abs diff from plain {abs_err:.3e} > 1e-5")
-        check(vs_k1 <= 1e-5,
-              f"K3 {name}: max abs diff from K1 {vs_k1:.3e} > 1e-5")
+        check(bool(torch.equal(got, other)),
+              f"K3 {name}: not equal to K1 bit for bit (max abs diff "
+              f"{float((got - other).abs().max()):.3e})")
         abs_by_case[name] = abs_err
         print(f"[K3] {name}: B={a32.shape[0]} max abs diff from plain "
-              f"{abs_err:.3e} (rel {rel:.3e}), from K1 {vs_k1:.3e} "
-              f"(bounds 1e-5)", flush=True)
+              f"{abs_err:.3e} (rel {rel:.3e}, bound 1e-5); equal to K1 bit "
+              f"for bit", flush=True)
+
+    # general matrices: most pivot steps exchange rows, which K1 does by
+    # renaming and K3 by moving them
+    for n_gen in (22, 33, 64):
+        gen = torch.as_tensor(rng.standard_normal((64, n_gen, n_gen)),
+                              dtype=torch.float32, device="cuda")
+        got, other = k3(gen), k1(gen)
+        check(bool(torch.equal(got, other)),
+              f"K3 general n={n_gen}: not equal to K1 bit for bit")
+        res = (got.double() @ gen.double()
+               - torch.eye(n_gen, device="cuda")).abs().amax(dim=(1, 2))
+        check(float(res.median()) < 1e-2,
+              f"K3 general n={n_gen}: median ||XA-I||max {float(res.median())}")
+    print("[K3] general matrices n=22, 33, 64 (B=64): equal to K1 bit for "
+          "bit", flush=True)
 
     # inverse() through block-Schur at n=97 with K3 on both blocks
     a97 = random_newton(rng, 16, 97, scale=0.05)
@@ -393,8 +427,12 @@ def phase_k3(model, rng):
           "K3: singular input gave a non-finite inverse")
     check(bool(torch.equal(k3(sing), gpu_lu.gj_inverse_f32_plain(sing))),
           "K3: singular input differs from the plain version")
-    print("[K3] NaN in -> non-finite out; singular in -> finite out",
-          flush=True)
+    check(not bool(torch.isfinite(k1(nan)).all()),
+          "K1: NaN input gave a finite inverse")
+    check(bool(torch.equal(k1(sing), k3(sing))),
+          "K1: singular input differs from K3")
+    print("[K3] NaN in -> non-finite out; singular in -> finite out (K1 "
+          "too)", flush=True)
 
     # timing at the fit path's screening shape
     n = 22
@@ -408,9 +446,7 @@ def phase_k3(model, rng):
     plain_ms = cuda_ms(lambda: gpu_lu.gj_inverse_f32_plain(a22), reps=10)
     lib_ms = cuda_ms(lambda: torch.linalg.inv(a22), reps=200)
     nbytes = 2 * BATCH * n * n * 4
-    # in place: per pivot step n divisions and (n-1) rows of n
-    # multiply-adds
-    ops = BATCH * n * (n + 2 * n * (n - 1))
+    ops = BATCH * n * (n + 2 * n * (n - 1))   # in place, as K1
     b_ms, b_by = bound_ms(nbytes, ops / F32_FLOPS)
     print(f"[K3] B={BATCH} n=22: kernel {ms:.4f} ms from the queue "
           f"({paced_ms:.4f} ms at the host's launch pace; K1 from the "
@@ -420,11 +456,35 @@ def phase_k3(model, rng):
           f"K3 {ms_1k:.4f} ms, K1 {k1_ms_1k:.4f} ms", flush=True)
     return dict(name="gj_inverse_major_f32", route="cuda",
                 ms_by_batch={BATCH: ms, MAJOR_BATCH: ms_major, 1024: ms_1k},
+                host_paced_ms_by_batch={BATCH: paced_ms},
                 max_abs_err_by_case=abs_by_case,
                 source="tpusysbio_torch/linalg/csrc/gj_inverse_major.cu",
                 replaces="tpusysbio/linalg/pallas_lu.py:55",
                 max_abs_err=abs_by_case["n22"], ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def phase_floor():
+    """The launch floor: an empty kernel through the kernels' launch route
+    (ctypes entry point, PyTorch's current stream), queued as the kernels
+    are timed."""
+    import torch
+
+    from tpusysbio_torch.linalg import _build
+
+    fn = _build.load().tsb_launch_floor
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(blocks):
+        check(fn(blocks, 128, stream) == 0, "floor: the launch failed")
+
+    floor = {g: cuda_ms(lambda: launch(g), reps=200) for g in (16, 256)}
+    paced = {g: cuda_ms(lambda: launch(g), reps=200, queued=False)
+             for g in (16, 256)}
+    print(f"[floor] empty kernel, 128 threads a block, ms from the queue: "
+          f"grid 16 {floor[16]:.4f}, grid 256 {floor[256]:.4f}; at the "
+          f"host's launch pace (ctypes call alone): grid 16 {paced[16]:.4f}, "
+          f"grid 256 {paced[256]:.4f}", flush=True)
 
 
 def phase_main_path():
@@ -829,6 +889,7 @@ def main():
     rng = np.random.default_rng(1234)
     kernels = [phase_k1(model, rng), phase_k2(model, rng),
                phase_k3(model, rng)]
+    phase_floor()
     l_main, run = phase_main_path()
     (l_fit, l_screen, l_polish), problem = phase_fit()
     l_major = phase_fit_major(problem)
@@ -859,7 +920,8 @@ def main():
               f"kernel {kern['name']} was launched on none of the paths")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "max_abs_err_by_case", "ms",
-            "ms_by_batch", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms_by_batch", "host_paced_ms_by_batch", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
     print(card)

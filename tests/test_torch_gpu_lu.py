@@ -155,8 +155,146 @@ def test_gj_nan_input_gives_nonfinite_output():
 
 
 # --------------------------------------------------------------------------
+# K1's scheme on the card, emulated: a row per lane, in place, no row moves
+# --------------------------------------------------------------------------
+
+def _emulate_k1(a):
+    """``csrc/gj_inverse.cu`` step by step in numpy f32 for one (n, n)
+    matrix. ``row[l]`` is what physical row ``l`` (lane ``l % 32``, slot
+    ``l // 32``) holds in its ``W`` registers (n padded to a multiple of 8)
+    and never leaves it; ``pos[l]`` is that row's logical position. The row
+    rotates by one register per step, so step k works on register 0. In
+    place: column k takes the inverse's column. The pivot is the lowest
+    logical row reaching the column maximum (a NaN never wins; if nothing
+    wins, row k stays), ``!(|p| > 1e-30)`` becomes ±1e-30, the pivot row is
+    divided by a true division, W - n last rotations bring every column
+    back to its register, and the store undoes the row exchanges through
+    its addresses."""
+    f32 = np.float32
+    n = a.shape[0]
+    W = 8 * ((n + 7) // 8)
+    row = np.zeros((n, W), f32)
+    row[:, :n] = a
+    pos = np.arange(n)
+    with np.errstate(all="ignore"):
+        for k in range(n):
+            col = np.abs(row[:, 0])
+            offers = (pos >= k) & ~np.isnan(col)
+            p = k
+            if offers.any():
+                p = pos[offers & (col == col[offers].max())].min()
+            src = int(np.flatnonzero(pos == p)[0])
+            held_k = int(np.flatnonzero(pos == k)[0])
+            pos[held_k], pos[src] = p, k
+            u = row[src].copy()
+            pivot = u[0]
+            u[0] = f32(1.0)
+            if not abs(pivot) > f32(1e-30):
+                pivot = f32(1e-30) if pivot >= 0 else f32(-1e-30)
+            q = u / pivot
+            f = row[:, 0].copy()
+            row[:, 0] = f32(0.0)
+            row = row - f[:, None] * q[None, :]
+            row[src] = q
+            row = np.roll(row, -1, axis=1)
+    # register j holds logical column (n + j) mod W: W - n more rotations
+    # bring column c back to register c
+    for _ in range(n, W):
+        row = np.roll(row, -1, axis=1)
+    holder = np.argsort(pos)          # holder[c]: physical row at logical c
+    out = np.empty((n, n), f32)
+    for c in range(n):
+        out[pos, holder[c]] = row[:, c]
+    return out
+
+
+def _assert_k1_emulation_equals_plain(a):
+    ref = gpu_lu.gj_inverse_f32_plain(torch.as_tensor(a)).numpy()
+    got = np.stack([_emulate_k1(m) for m in a])
+    np.testing.assert_array_equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 5, 22, 32, 33, 64])
+def test_gj_register_scheme_equals_plain_bitwise(n):
+    """Both do one division per pivot-row element and one unfused
+    multiply-subtract per eliminated element, so they agree to the bit. The
+    general matrices (scale 1) make most steps exchange rows."""
+    rng = np.random.default_rng(200 + n)
+    newton = _newton_like(rng, 3, n).astype(np.float32)
+    general = rng.standard_normal((3, n, n)).astype(np.float32)
+    _assert_k1_emulation_equals_plain(np.concatenate([newton, general]))
+
+
+def test_gj_register_scheme_tied_pivots_take_the_lowest_row():
+    a = np.array([[[2.0, 1.0, 0.0], [-2.0, 3.0, 1.0], [2.0, 0.0, 5.0]],
+                  [[0.0, 1.0, 2.0], [1.0, 1.0, 0.0], [-1.0, 1.0, 3.0]]],
+                 dtype=np.float32)
+    got = _assert_k1_emulation_equals_plain(a)
+    np.testing.assert_allclose(got @ a, np.broadcast_to(np.eye(3), a.shape),
+                               atol=1e-5)
+
+
+def test_gj_register_scheme_singular_gives_finite_output():
+    a = np.array([[[1.0, 2.0], [2.0, 4.0]],
+                  [[0.0, 0.0], [0.0, 0.0]]], dtype=np.float32)
+    assert np.isfinite(_assert_k1_emulation_equals_plain(a)).all()
+
+
+def test_gj_register_scheme_nan_gives_nonfinite_output():
+    a = np.eye(3, dtype=np.float32)
+    a[1, 2] = np.nan
+    assert not np.isfinite(_emulate_k1(a)).all()
+    # all NaN: nothing wins the search, the NaN pivot becomes -1e-30
+    a = np.full((2, 2), np.nan, dtype=np.float32)
+    assert not np.isfinite(_emulate_k1(a)).all()
+
+
+def test_gj_register_scheme_permutation_matrix():
+    """Every step exchanges rows; the store's two permutations must undo
+    them: the inverse of a permutation matrix is its transpose."""
+    a = np.eye(5, dtype=np.float32)[[3, 0, 4, 1, 2]]
+    np.testing.assert_array_equal(_emulate_k1(a), a.T)
+
+
+# --------------------------------------------------------------------------
 # K2: refined f64 solve
 # --------------------------------------------------------------------------
+
+def _emulate_k2(x32, a, b, steps=3):
+    """``csrc/refine_solve.cu`` for one member in numpy: every mat-vec is
+    a sum over j in increasing order, f32 for X and f64 for A."""
+    def matvec(m, v, dtype):
+        acc = np.zeros(m.shape[0], dtype)
+        for j in range(m.shape[1]):
+            acc = acc + m[:, j] * v[j]
+        return acc
+
+    y = matvec(x32, b.astype(np.float32), np.float32).astype(np.float64)
+    for _ in range(steps):
+        r = b - matvec(a, y, np.float64)
+        y = y + matvec(x32, r.astype(np.float32),
+                       np.float32).astype(np.float64)
+    return y
+
+
+@pytest.mark.parametrize("n", [5, 22, 40])
+def test_refine_summation_order_matches_plain(n):
+    """The kernel sums in increasing j, the plain version lets a batched
+    matmul choose: f32 accumulation order, so <= 1e-6 relative (the three
+    refinement rounds leave far less)."""
+    rng = np.random.default_rng(300 + n)
+    a = _newton_like(rng, 6, n)
+    b = rng.standard_normal((6, n))
+    x32 = gpu_lu.inverse(torch.as_tensor(a, dtype=torch.float32))
+    ref = gpu_lu.refine_solve_plain(x32, torch.as_tensor(a),
+                                    torch.as_tensor(b)).numpy()
+    got = np.stack([_emulate_k2(x32[i].numpy(), a[i], b[i])
+                    for i in range(6)])
+    assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) <= 1e-6
+    y_np = np.linalg.solve(a, b[:, :, None])[:, :, 0]
+    assert np.max(np.abs(got - y_np) / (np.abs(y_np) + 1e-30)) < 1e-9
+
 
 @pytest.mark.parametrize("n", [5, 22, 30])
 def test_solve_refined_accuracy_and_reference(n):
@@ -200,6 +338,54 @@ def test_solve_refined_f32_rhs_is_one_matmul():
     y = gpu_lu.solve_refined(fact, b)
     assert y.dtype == torch.float32
     torch.testing.assert_close(y, x32 @ b, rtol=0, atol=0)
+
+
+def test_solve_refined_takes_noncontiguous_inputs():
+    """The K2 branch hands its wrapper contiguous tensors whatever it was
+    given; the answer does not depend on the layout."""
+    rng = np.random.default_rng(8)
+    a = torch.as_tensor(_newton_like(rng, 4, 9))
+    b = torch.as_tensor(rng.standard_normal((4, 9, 1)))
+    x32, _ = gpu_lu.factor_for_solve(a)
+    ref = gpu_lu.solve_refined((x32, a), b)
+    strided = (x32.transpose(1, 2).contiguous().transpose(1, 2),
+               a.transpose(1, 2).contiguous().transpose(1, 2))
+    assert not strided[0].is_contiguous()
+    got = gpu_lu.solve_refined(strided, b.expand(4, 9, 2)[:, :, :1])
+    assert torch.equal(got, ref)
+
+
+def test_wrapper_checks_raise_off_the_card():
+    """The one-pass input check: a device that is neither CPU nor CUDA,
+    and tensors that do not all lie on the launch's device."""
+    a = torch.eye(3).repeat(2, 1, 1)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        gpu_lu.gj_inverse_f32(a.to("meta"))
+    with pytest.raises(ValueError, match="tensors on"):
+        gpu_lu._check_cuda("k", torch.device("cuda", 0),
+                           (a, torch.float32, (2, 3, 3)))
+
+
+def test_ptxas_report_is_parsed():
+    from tpusysbio_torch.linalg import _build
+
+    log = """== gj_inverse.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1kILi24ELi1EEvPKfPfii' for 'sm_90a'
+ptxas info    : Function properties for _Z1kILi24ELi1EEvPKfPfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 0 barriers, 376 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1kILi64ELi2EEvPKfPfii' for 'sm_90a'
+ptxas info    : Function properties for _Z1kILi64ELi2EEvPKfPfii
+    264 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 376 bytes cmem[0]
+"""
+    rep = _build.resource_report(log)
+    assert [r["registers"] for r in rep] == [56, 255]
+    assert [r["source"] for r in rep] == ["gj_inverse.cu"] * 2
+    assert (rep[0]["spill_stores"], rep[0]["spill_loads"]) == (0, 0)
+    assert (rep[1]["stack"], rep[1]["spill_stores"],
+            rep[1]["spill_loads"]) == (264, 8, 12)
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():

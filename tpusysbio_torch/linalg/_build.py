@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,14 +37,15 @@ _SIGNATURES = {
     "tsb_gj_inverse_f32": (_P, _P, _I, _I, _P),
     "tsb_gj_inverse_major_f32": (_P, _P, _I, _I, _P),
     "tsb_refine_solve": (_P, _P, _P, _P, _I, _I, _P),
+    "tsb_launch_floor": (_I, _I, _P),
 }
 
 _lib = None
 build_info = {}   # filled by build(): path, seconds, compiler log
 
 
-def sources():
-    return sorted(SRC_DIR.glob("*.cu"))
+def sources(src_dir: Path = SRC_DIR):
+    return sorted(Path(src_dir).glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -58,28 +60,29 @@ def nvcc_path() -> str:
     return found
 
 
-def _digest() -> str:
+def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources (if this version is not built yet) and return
-    the shared library's path."""
-    out_dir = BUILD_ROOT / _digest()
+def compile_library(src_dir: Path = SRC_DIR) -> dict:
+    """Compile every ``*.cu`` of ``src_dir`` (if this version is not built
+    yet) into one shared library. Returns ``path``, ``cached``, ``seconds``
+    and, for a fresh build, the compiler's ``log``."""
+    srcs = sources(src_dir)
+    out_dir = BUILD_ROOT / _digest(srcs)
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
-        build_info.update(path=str(lib_path), seconds=0.0, cached=True)
-        return lib_path
+        return dict(path=str(lib_path), seconds=0.0, cached=True)
     nvcc = nvcc_path()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         objs, procs = [], []
-        for src in sources():
+        for src in srcs:
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
@@ -101,21 +104,62 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         out_dir.mkdir(parents=True, exist_ok=True)
         os.replace(tmp_lib, lib_path)
-    build_info.update(path=str(lib_path), cached=False,
-                      seconds=time.perf_counter() - t0,
-                      log="".join(f"== {src.name}\n{out}"
-                                  for src, out, _ in logs))
-    return lib_path
+    return dict(path=str(lib_path), cached=False,
+                seconds=time.perf_counter() - t0,
+                log="".join(f"== {src.name}\n{out}" for src, out, _ in logs))
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
+def build() -> Path:
+    """Compile the port's sources (if this version is not built yet) and
+    return the shared library's path."""
+    build_info.update(compile_library())
+    return Path(build_info["path"])
+
+
+def resource_report(log: str) -> list:
+    """What ``ptxas -v`` said in a build log, one entry per kernel: its
+    source file, its (mangled) name, registers per thread, and the bytes of
+    stack frame and of spill stores and loads (0 unless a loop was left
+    rolled over an array that then lives in local memory)."""
+    entries, src = [], None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif m := re.search(r"Compiling entry function '([^']+)'", line):
+            entries.append(dict(source=src, kernel=m.group(1), registers=None,
+                                stack=0, spill_stores=0, spill_loads=0))
+        elif not entries:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            cur = entries[-1]
+            for key, val in zip(("stack", "spill_stores", "spill_loads"),
+                                m.groups()):
+                cur[key] = max(cur[key], int(val))
+        elif m := re.search(r"Used (\d+) registers", line):
+            entries[-1]["registers"] = int(m.group(1))
+    return entries
+
+
+def open_library(path) -> ctypes.CDLL:
+    """Load a library built by :func:`compile_library` and declare the
+    entry points it has (a source set may lack some of them)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The port's kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = open_library(build())
+        missing = [name for name in _SIGNATURES if not hasattr(lib, name)]
+        if missing:
+            raise RuntimeError(f"the kernel library lacks {missing}")
         _lib = lib
     return _lib

@@ -5,13 +5,15 @@ kernels (``linalg/csrc/``) replace its three TPU kernels:
 
 - K1 (``csrc/gj_inverse.cu``) replaces ``_gj_batched_kernel``: a batched
   f32 Gauss-Jordan inverse with partial pivoting, the factorization of
-  every Newton matrix ``I - cJ``; one thread block per matrix;
+  every Newton matrix ``I - cJ``; one warp per matrix, the matrix in the
+  warp's registers;
 - K3 (``csrc/gj_inverse_major.cu``) replaces ``_gj_batch_major_kernel``:
-  the same function, one warp per matrix; ``gj_inverse_f32`` launches it in
-  K1's place when ``TPUSYSBIO_GJ_LAYOUT=major``, the reference's switch;
+  the same function, one warp per matrix over a shared-memory tile;
+  ``gj_inverse_f32`` launches it in K1's place when
+  ``TPUSYSBIO_GJ_LAYOUT=major``, the reference's switch;
 - K2, ``refine_solve`` (``csrc/refine_solve.cu``), replaces
   ``_make_refine_kernel``: the f64 solve of one column from the f32
-  inverse with three rounds of iterative refinement.
+  inverse with three rounds of iterative refinement; one warp per member.
 
 Each wrapper has a plain PyTorch twin of the same function. The wrapper
 takes the twin only when its input lies on the CPU; on a CUDA tensor it
@@ -52,21 +54,30 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _check_cuda(name, t, dtype, shape):
-    if t.device.type != "cuda":
+def _check_cuda(name, device, *specs):
+    """One pass over ``(tensor, dtype, shape)`` triples: each tensor must
+    lie on ``device`` (a CUDA device), have that dtype and shape and be
+    contiguous."""
+    if device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got "
-                         f"{t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
+                         f"{device}")
+    for t, dtype, shape in specs:
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {device} and {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _stream(device):
+    """The handle of PyTorch's current stream on ``device``, read without
+    building a ``Stream`` object: the stepper calls a wrapper once per
+    factorization or Newton trip, so its host cost counts."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # --------------------------------------------------------------------------
@@ -121,11 +132,11 @@ def gj_inverse_f32(a: torch.Tensor) -> torch.Tensor:
     if a.ndim != 3 or n > MAX_KERNEL_N:
         raise ValueError(f"{name}: expected (B, n, n) with n <= "
                          f"{MAX_KERNEL_N}, got {tuple(a.shape)}")
-    _check_cuda(name, a, torch.float32, (B, n, n))
+    device = a.device
+    _check_cuda(name, device, (a, torch.float32, (B, n, n)))
     out = torch.empty_like(a)
-    err = getattr(_build.load(), "tsb_" + name)(a.data_ptr(),
-                                                out.data_ptr(), B, n,
-                                                _stream(a))
+    err = getattr(_build.load(), "tsb_" + name)(
+        a.data_ptr(), out.data_ptr(), B, n, _stream(device))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -233,13 +244,13 @@ def refine_solve(x32: torch.Tensor, a: torch.Tensor,
     if a.ndim != 3 or n > _REFINE_MAX_N:
         raise ValueError(f"refine_solve: expected (B, n, n) with n <= "
                          f"{_REFINE_MAX_N}, got {tuple(a.shape)}")
-    _check_cuda("refine_solve", x32, torch.float32, (B, n, n))
-    _check_cuda("refine_solve", a, torch.float64, (B, n, n))
-    _check_cuda("refine_solve", b, torch.float64, (B, n))
+    device = a.device
+    _check_cuda("refine_solve", device, (x32, torch.float32, (B, n, n)),
+                (a, torch.float64, (B, n, n)), (b, torch.float64, (B, n)))
     y = torch.empty_like(b)
     err = _build.load().tsb_refine_solve(
         x32.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, n,
-        _stream(a))
+        _stream(device))
     if err != 0:
         raise RuntimeError(f"refine_solve launch failed: cudaError {err}")
     LAUNCHES["refine_solve"] += 1
