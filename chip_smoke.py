@@ -21,13 +21,17 @@ first failed check:
 4. K2 (``refine_solve``) against its plain version and against
    ``torch.linalg.solve`` at n=22, B=256 (the main path) and B=16 (the
    fit's polish), and at n=64, f64; timed at B=16, 64, 256 and 1024;
-5. K3 (the batch-major ``gj_inverse_f32``, a shared-memory tile per warp)
-   against the same plain version, and bit for bit against K1's output,
-   at n=22, B=256, B=64 (the batch of phase 8, the path that launches it)
-   and B=1024, at n=64, 33, 32 and 1, on general matrices that exchange
-   rows, through block-Schur at n=97 under the ``major`` layout, and on a
-   NaN and a singular matrix; then the launch floor (``[floor]``): an
-   empty kernel through the same launch route at grids of 16 and 256;
+5. K3 (the batch-major ``gj_inverse_f32``: a group of lanes per matrix,
+   several matrices a warp) against the same plain version, and bit for
+   bit against K1's output, at n=22, B=256, B=64 (the batch of phase 8),
+   B=67 (a last warp with groups that have no matrix) and B=1024, at
+   n=64, 33, 32 and 1, at the two block-Schur shapes of the 99-state
+   model, (64, 64, 64) and (64, 35, 35), on general matrices that
+   exchange rows, on tied pivots, through block-Schur at n=97 under the
+   ``major`` layout, and on a NaN and a singular matrix; timed beside K1
+   at B=64, 256, 1024 and 4096 and at the two block-Schur shapes; then
+   the launch floor (``[floor]``): an empty kernel through the same launch
+   route at grids of 16 and 256;
 6. the main path of the first slice: the ``bench.py`` contract (MAPK-22,
    BDF with all 30 forward sensitivities, rtol=1e-6, atol=1e-9,
    ``sens_precision='f32'``, ``dense_f32``, ``linear_solver='pallas'``,
@@ -47,9 +51,25 @@ first failed check:
    agree with the card;
 8. the fit path's screening phase under ``TPUSYSBIO_GJ_LAYOUT=major``
    (64 starts, 2 iterations): K3 must be launched in K1's place and the
-   costs must agree with the ``minor`` layout's.
+   costs must agree with the ``minor`` layout's;
+9. the EGFR-scale path (``[egfr-sens]``): the 99-species, 146-constant
+   receptor cascade with 11 free constants as ``bench/egfr_bench.py``
+   builds it (data from an rtol=1e-8 simulation on the card), one batch of
+   64 ``Project.evaluate(theta, with_jac=True)`` at rtol=1e-6 with the 11
+   direction columns in f32; every factorization inverts the 99 x 99
+   Newton matrix by block-Schur elimination, so K1 must be launched an even
+   number of times, half at n=64 and half at n=35, and K2 not at all
+   (n > 64); all members must finish without a NaN from the Schur guard, 2
+   members re-run on the CPU must agree, and the golden EGFR trajectory
+   must hold on the card;
+10. the EGFR-scale fit (``[egfr-fit]``): 64 Latin-hypercube starts through
+   ``make_multistart_runner(iter_chunk=2)``, 10 lockstep LM iterations; at
+   least 56 costs finite and the best no worse than at the true parameters;
+11. one EGFR evaluation of 16 members under the ``major`` layout
+   (``[egfr-major]``): K3 launched at both block shapes, K1 not, residuals
+   and Jacobian equal to the ``minor`` run's bit for bit.
 
-The launch counters are set to 0 just before each of the three paths and
+The launch counters are set to 0 just before each of the six paths and
 read just after. The lines before the last are a ``{"kernels": [...]}``
 JSON object (per kernel: launches on those paths, error against its plain
 version, its time, the plain version's, the least time the card could take
@@ -98,6 +118,13 @@ FIT_SCREEN_ITERS = 8
 FIT_POLISH_ITERS = 20
 FIT_ITER_CHUNK = 4
 MINPACK_ANCHOR_COST = 10.133   # scipy.optimize.leastsq on this problem
+
+# the EGFR-scale path (bench/egfr_bench.py): 99 species, 11 free constants
+EGFR_BATCH = 64
+EGFR_MAJOR_BATCH = 16
+EGFR_FIT_ITERS = 10
+EGFR_ITER_CHUNK = 2
+EGFR_FREE_PREFIXES = ("L+Rec", "LR+A0_0", "LR+A0_1", "P0+A0_1")
 
 
 def fail(msg: str):
@@ -339,10 +366,84 @@ def phase_k2(model, rng):
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
+def schur_blocks(rng, batch):
+    """The two matrices that block-Schur elimination hands the
+    Gauss-Jordan kernel for a 99-state Newton matrix: the leading 64 x 64
+    block of ``I - cJ`` (the EGFR-scale model at random states, f32) and
+    the 35 x 35 Schur complement of it."""
+    import torch
+
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+
+    model = library.egfr_like(device="cuda")
+    p = library.egfr_true_params(device="cuda")[None] * torch.as_tensor(
+        np.exp(rng.normal(scale=0.1, size=(batch, model.n_params))),
+        device="cuda")
+    y = torch.as_tensor(rng.uniform(0.0, 1.0, size=(batch, model.n_states)),
+                        device="cuda")
+    J = model.rhs_jac(torch.zeros(batch, dtype=torch.float64, device="cuda"),
+                      y, p)
+    a = (torch.eye(model.n_states, dtype=torch.float64, device="cuda")
+         - 1e-2 * J).to(torch.float32)
+    n1 = gpu_lu.MAX_KERNEL_N
+    a11 = a[:, :n1, :n1].contiguous()
+    x11 = gpu_lu.gj_inverse_f32_plain(a11)
+    s = a[:, n1:, n1:] - a[:, n1:, :n1] @ (x11 @ a[:, :n1, n1:])
+    return a11, s.contiguous()
+
+
+def division_operands(rng, count):
+    """Numerators and denominators for the check of K3's own division: all
+    exponents, both signs, and the values its range check must catch
+    (zeros, denormals, infinities, NaN)."""
+    def wide():
+        with np.errstate(over="ignore"):
+            x = np.ldexp(rng.uniform(1.0, 2.0, count),
+                         rng.integers(-150, 130, count)).astype(np.float32)
+        x *= rng.choice([-1.0, 1.0], count).astype(np.float32)
+        for value, share in ((0.0, 64), (-0.0, 64), (np.inf, 256),
+                             (np.nan, 256)):
+            x[rng.integers(0, count, count // share)] = value
+        return x
+
+    return wide(), wide()
+
+
+def phase_k3_division(rng):
+    """K3 divides the pivot row by a branch-free sequence of its own; it
+    must round as ``__fdiv_rn`` (K1's division) does, bit for bit."""
+    import torch
+
+    from tpusysbio_torch.linalg import _build
+
+    count = 1 << 22
+    x, b = (torch.as_tensor(v, device="cuda")
+            for v in division_operands(rng, count))
+    # the middle range, where the short sequence itself answers
+    b[: count // 2] = torch.as_tensor(
+        np.ldexp(rng.uniform(1.0, 2.0, count // 2),
+                 rng.integers(-30, 30, count // 2)).astype(np.float32),
+        device="cuda")
+    got, ref = torch.empty_like(x), torch.empty_like(x)
+    err = _build.load().tsb_gj_major_divide_check(
+        x.data_ptr(), b.data_ptr(), got.data_ptr(), ref.data_ptr(), count,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(err == 0, f"K3 division check: launch failed, cudaError {err}")
+    same = ((got.view(torch.int32) == ref.view(torch.int32))
+            | (got.isnan() & ref.isnan()))
+    bad = int((~same).sum())
+    print(f"[K3] the kernel's division against __fdiv_rn on {count} pairs "
+          f"(all exponents, zeros, denormals, infinities, NaN): {bad} "
+          f"differ", flush=True)
+    check(bad == 0, f"K3 division: {bad} quotients differ from __fdiv_rn")
+
+
 def phase_k3(model, rng):
-    """K3, the Gauss-Jordan kernel over a shared-memory tile per warp,
-    against the plain version it shares with K1, and bit for bit against
-    K1 (the matrix in registers)."""
+    """K3, the Gauss-Jordan kernel with the batch in the warp (a group of
+    lanes per matrix), against the plain version it shares with K1, and bit
+    for bit against K1 (a warp per matrix)."""
     import torch
 
     from tpusysbio_torch.linalg import gpu_lu
@@ -355,17 +456,22 @@ def phase_k3(model, rng):
         with gj_layout("minor"):
             return gpu_lu.gj_inverse_f32(a)
 
+    phase_k3_division(rng)
     a22 = newton_matrices(model, rng, BATCH).to(torch.float32).contiguous()
-    # the batch of [fit-major], K3's only driven path
+    # the batch of [fit-major]
     a22_major = newton_matrices(model, rng, MAJOR_BATCH).to(
         torch.float32).contiguous()
+    # the shapes of [egfr-sens], [egfr-fit] and [egfr-major]
+    a64_schur, a35_schur = schur_blocks(rng, EGFR_BATCH)
     cases = (("n22", a22), ("n22 fit-major", a22_major),
              ("n22 large", random_newton(rng, 1024, 22).to(torch.float32)),
+             ("n22 ragged", random_newton(rng, 67, 22).to(torch.float32)),
              ("n64", random_newton(rng, BATCH, 64).to(torch.float32)),
              ("n33", random_newton(rng, 33, 33).to(torch.float32)),
              ("n32", random_newton(rng, 5, 32).to(torch.float32)),
-             ("n1", random_newton(rng, 7, 1).to(torch.float32)))
-    abs_by_case = {}
+             ("n1", random_newton(rng, 7, 1).to(torch.float32)),
+             ("64x64x64 egfr", a64_schur), ("64x35x35 egfr", a35_schur))
+    abs_by_case, k1_abs_by_case = {}, {}
     for name, a32 in cases:
         before = gpu_lu.LAUNCHES["gj_inverse_major_f32"]
         got = k3(a32)
@@ -384,14 +490,15 @@ def phase_k3(model, rng):
               f"K3 {name}: not equal to K1 bit for bit (max abs diff "
               f"{float((got - other).abs().max()):.3e})")
         abs_by_case[name] = abs_err
+        k1_abs_by_case[name] = float((other - ref).abs().max())
         print(f"[K3] {name}: B={a32.shape[0]} max abs diff from plain "
               f"{abs_err:.3e} (rel {rel:.3e}, bound 1e-5); equal to K1 bit "
               f"for bit", flush=True)
 
-    # general matrices: most pivot steps exchange rows, which K1 does by
-    # renaming and K3 by moving them
-    for n_gen in (22, 33, 64):
-        gen = torch.as_tensor(rng.standard_normal((64, n_gen, n_gen)),
+    # general matrices: most pivot steps exchange rows, which both kernels
+    # do by renaming; the groups of a K3 warp pivot on different rows
+    for n_gen in (22, 33, 35, 64):
+        gen = torch.as_tensor(rng.standard_normal((66, n_gen, n_gen)),
                               dtype=torch.float32, device="cuda")
         got, other = k3(gen), k1(gen)
         check(bool(torch.equal(got, other)),
@@ -400,8 +507,19 @@ def phase_k3(model, rng):
                - torch.eye(n_gen, device="cuda")).abs().amax(dim=(1, 2))
         check(float(res.median()) < 1e-2,
               f"K3 general n={n_gen}: median ||XA-I||max {float(res.median())}")
-    print("[K3] general matrices n=22, 33, 64 (B=64): equal to K1 bit for "
-          "bit", flush=True)
+    print("[K3] general matrices n=22, 33, 35, 64 (B=66): equal to K1 bit "
+          "for bit", flush=True)
+    tied = torch.tensor(
+        [[[2.0, 1.0, 0.0], [-2.0, 3.0, 1.0], [2.0, 0.0, 5.0]],
+         [[0.0, 1.0, 2.0], [1.0, 1.0, 0.0], [-1.0, 1.0, 3.0]]],
+        device="cuda")
+    check(bool(torch.equal(k3(tied), k1(tied))),
+          "K3 tied pivots: not equal to K1 bit for bit")
+    tied_err = float((k3(tied) - gpu_lu.gj_inverse_f32_plain(tied)).abs()
+                     .max())
+    check(tied_err <= 1e-6, f"K3 tied pivots: {tied_err:.3e} from plain")
+    print(f"[K3] tied pivots: the lowest row wins, {tied_err:.3e} from "
+          f"plain (bound 1e-6), equal to K1 bit for bit", flush=True)
 
     # inverse() through block-Schur at n=97 with K3 on both blocks
     a97 = random_newton(rng, 16, 97, scale=0.05)
@@ -417,11 +535,19 @@ def phase_k3(model, rng):
     print(f"[K3] n97 (block-Schur under 'major', K3 on both blocks): B=16 "
           f"||XA-I||inf {res:.3e} (bound 1e-11)", flush=True)
 
-    # a NaN gives a non-finite inverse, a singular matrix a finite one
+    # a NaN gives a non-finite inverse and leaves its neighbours in the
+    # warp alone; a singular matrix gives a finite one
     nan = torch.eye(3, device="cuda")[None].clone()
     nan[0, 1, 2] = float("nan")
     check(not bool(torch.isfinite(k3(nan)).all()),
           "K3: NaN input gave a finite inverse")
+    mixed = a22[:6].clone()
+    mixed[2, 3, 4] = float("nan")
+    got = k3(mixed)
+    keep = [0, 1, 3, 4, 5]
+    check(bool(torch.equal(got[keep], k3(a22[:6])[keep]))
+          and not bool(torch.isfinite(got[2]).all()),
+          "K3: a NaN member changed its neighbours in the warp")
     sing = torch.tensor([[[1.0, 2.0], [2.0, 4.0]]], device="cuda")
     check(bool(torch.isfinite(k3(sing)).all()),
           "K3: singular input gave a non-finite inverse")
@@ -431,37 +557,64 @@ def phase_k3(model, rng):
           "K1: NaN input gave a finite inverse")
     check(bool(torch.equal(k1(sing), k3(sing))),
           "K1: singular input differs from K3")
-    print("[K3] NaN in -> non-finite out; singular in -> finite out (K1 "
-          "too)", flush=True)
+    print("[K3] NaN in -> non-finite out, neighbours in the warp unchanged; "
+          "singular in -> finite out (K1 too)", flush=True)
 
-    # timing at the fit path's screening shape
+    # timing at n=22, K1 beside it in the same call: B=256 is the screen's
+    # batch, B=64 [fit-major]'s
     n = 22
-    ms = cuda_ms(lambda: k3(a22), reps=200)
-    paced_ms = cuda_ms(lambda: k3(a22), reps=200, queued=False)
-    k1_ms = cuda_ms(lambda: k1(a22), reps=200)
-    ms_major = cuda_ms(lambda: k3(a22_major), reps=200)
-    a1k = cases[2][1].contiguous()
-    ms_1k, k1_ms_1k = (cuda_ms(lambda: fn(a1k), reps=200)
-                       for fn in (k3, k1))
+    by_batch = {BATCH: a22, MAJOR_BATCH: a22_major}
+    for B in (1024, 4096):
+        by_batch[B] = random_newton(rng, B, n).to(torch.float32)
+    ms_q = {B: cuda_ms(lambda: k3(by_batch[B]), reps=200)
+            for B in sorted(by_batch)}
+    k1_q = {B: cuda_ms(lambda: k1(by_batch[B]), reps=200)
+            for B in sorted(by_batch)}
+    ms_h = {B: cuda_ms(lambda: k3(by_batch[B]), reps=200, queued=False)
+            for B in sorted(by_batch)}
+    ms = ms_q[BATCH]
     plain_ms = cuda_ms(lambda: gpu_lu.gj_inverse_f32_plain(a22), reps=10)
     lib_ms = cuda_ms(lambda: torch.linalg.inv(a22), reps=200)
     nbytes = 2 * BATCH * n * n * 4
     ops = BATCH * n * (n + 2 * n * (n - 1))   # in place, as K1
     b_ms, b_by = bound_ms(nbytes, ops / F32_FLOPS)
-    print(f"[K3] B={BATCH} n=22: kernel {ms:.4f} ms from the queue "
-          f"({paced_ms:.4f} ms at the host's launch pace; K1 from the "
-          f"queue in the same call {k1_ms:.4f} ms), plain {plain_ms:.4f} "
+    print(f"[K3] n=22 kernel ms from the queue: {fmt_by_batch(ms_q)} (K1 "
+          f"in the same call: {fmt_by_batch(k1_q)}); at the host's launch "
+          f"pace: {fmt_by_batch(ms_h)}", flush=True)
+    print(f"[K3] B={BATCH} n=22: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, torch.linalg.inv {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by}); at B={MAJOR_BATCH}: K3 {ms_major:.4f} ms; at B=1024: "
-          f"K3 {ms_1k:.4f} ms, K1 {k1_ms_1k:.4f} ms", flush=True)
+          f"({b_by})", flush=True)
+
+    # the two block-Schur shapes of the EGFR-scale paths, both kernels
+    by_shape, k1_by_shape, bound_by_shape, lib_by_shape = {}, {}, {}, {}
+    for a32 in (a64_schur, a35_schur):
+        B, m = a32.shape[0], a32.shape[-1]
+        tag = f"{B}x{m}x{m}"
+        by_shape[tag] = cuda_ms(lambda: k3(a32), reps=200)
+        k1_by_shape[tag] = cuda_ms(lambda: k1(a32), reps=200)
+        lib_by_shape[tag] = cuda_ms(lambda: torch.linalg.inv(a32), reps=200)
+        bound_by_shape[tag] = bound_ms(
+            2 * B * m * m * 4,
+            B * m * (m + 2 * m * (m - 1)) / F32_FLOPS)
+        print(f"[K3] block-Schur shape {tag}: K3 {by_shape[tag]:.4f} ms, K1 "
+              f"{k1_by_shape[tag]:.4f} ms from the queue, torch.linalg.inv "
+              f"{lib_by_shape[tag]:.4f} ms, bound "
+              f"{bound_by_shape[tag][0]:.6f} ms ({bound_by_shape[tag][1]})",
+              flush=True)
+    shape_keys = dict(
+        bound_ms_by_shape={k: v[0] for k, v in bound_by_shape.items()},
+        library_ms_by_shape=lib_by_shape)
     return dict(name="gj_inverse_major_f32", route="cuda",
-                ms_by_batch={BATCH: ms, MAJOR_BATCH: ms_major, 1024: ms_1k},
-                host_paced_ms_by_batch={BATCH: paced_ms},
+                ms_by_batch=ms_q, host_paced_ms_by_batch=ms_h,
+                ms_by_shape=by_shape, **shape_keys,
                 max_abs_err_by_case=abs_by_case,
                 source="tpusysbio_torch/linalg/csrc/gj_inverse_major.cu",
                 replaces="tpusysbio/linalg/pallas_lu.py:55",
                 max_abs_err=abs_by_case["n22"], ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                beside_k1=dict(ms_by_batch=k1_q, ms_by_shape=k1_by_shape,
+                               max_abs_err_by_case=k1_abs_by_case,
+                               **shape_keys))
 
 
 def phase_floor():
@@ -838,6 +991,293 @@ def phase_fit_major(problem):
     return l_major
 
 
+def build_egfr_problem(device):
+    """The EGFR-scale fit problem as ``bench/egfr_bench.py`` builds it:
+    the 99-species receptor cascade, data at 9 times for its 12 observables
+    from an rtol=1e-8 simulation at the true constants (seed-0 noise,
+    sigma = 2% of the largest value), the receptor module's and layer 0's
+    kinase and phosphatase constants free (11) and the other 135 fixed at
+    truth. Returns the ``Project`` and ``theta_true``."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.data import (Experiment, ExperimentBatch,
+                                      Measurement)
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.project import ParameterMap, Project
+
+    model = library.egfr_like(device=device)
+    p_true = library.egfr_true_params(device="cpu").numpy()
+    t = np.linspace(0.5, 10.0, 9)
+    sim = model.simulate(p_true[None], (0.0, 10.0), t,
+                         config=SolverConfig(rtol=1e-8, atol=1e-11,
+                                             max_steps=4096), device=device)
+    check(int(sim.status[0]) == 1,
+          "egfr: the data simulation did not finish")
+    p_dev = torch.as_tensor(p_true, device=device)[None].expand(len(t), -1)
+    obs = model.observables(sim.ys[0], p_dev).cpu().numpy()
+    rng = np.random.default_rng(0)
+    sigma = 0.02 * float(np.max(obs))
+    data = obs + rng.normal(scale=sigma, size=obs.shape)
+    meas = tuple(Measurement(obs_index=i, times=t, values=data[:, i],
+                             sigmas=np.full(len(t), sigma))
+                 for i in range(model.n_obs))
+    batch = ExperimentBatch.from_experiments([Experiment("egf", meas)],
+                                             device=device)
+    names = model.param_names
+    free = [n for n in names if n.startswith(EGFR_FREE_PREFIXES)]
+    fixed = {n: p_true[names.index(n)] for n in names if n not in free}
+    pmap = ParameterMap.create(names, 1, shared=tuple(free), fixed=fixed,
+                               device=device)
+    proj = Project(model=model, pmap=pmap, batch=batch,
+                   config=SolverConfig(rtol=1e-6, atol=1e-9, max_steps=768,
+                                       linear_solver="pallas",
+                                       sens_precision="f32",
+                                       dense_f32=True))
+    theta_true = pmap.pack({n: p_true[names.index(n)] for n in free})
+    return proj, theta_true
+
+
+def project_on_cpu(proj):
+    """The same problem (the same data, not a second simulation of them)
+    with every tensor on the CPU, where the kernels' plain versions run."""
+    import dataclasses
+
+    import torch
+
+    from tpusysbio_torch.model import library
+
+    def moved(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).cpu()
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    return dataclasses.replace(proj, model=library.egfr_like(device="cpu"),
+                               pmap=moved(proj.pmap),
+                               batch=moved(proj.batch))
+
+
+def gj_shape_counts(name):
+    """The launches of Gauss-Jordan kernel ``name`` by matrix size."""
+    from tpusysbio_torch.linalg import gpu_lu
+
+    return {n: c for (k, n), c in sorted(gpu_lu.LAUNCHES_BY_N.items())
+            if k == name}
+
+
+def check_schur_launches(tag, launches, by_n, kernel, other):
+    """Every factorization of a 99 x 99 matrix launches ``kernel`` once at
+    n=64 and once at n=35, and never ``other`` or the fused refined solve
+    (n > 64 takes the plain rounds)."""
+    total = launches[kernel]
+    check(total > 0 and total % 2 == 0,
+          f"{tag}: {kernel} launched {total} times, expected an even count")
+    check(by_n == {35: total // 2, 64: total // 2},
+          f"{tag}: {kernel} launches by n {by_n}, expected half of {total} "
+          f"at 64 and half at 35")
+    check(launches[other] == 0, f"{tag}: {other} was launched: {launches}")
+    check(launches["refine_solve"] == 0,
+          f"{tag}: the fused refined solve was launched at n=99: {launches}")
+
+
+def phase_egfr_sens(card):
+    """One batch of 64 evaluations with Jacobian of the EGFR-scale problem
+    (n=99, 11 direction columns) through ``Project.evaluate``."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.linalg import gpu_lu
+
+    t0 = time.perf_counter()
+    proj, theta_true = build_egfr_problem("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = proj.model
+    check(model.n_states == 99 and model.n_params == 146
+          and model.n_obs == 12 and proj.n_theta == 11
+          and proj.n_residuals == 108 and proj._theta_sens,
+          "egfr: the problem is not the 99-state, 146-constant, "
+          "11-parameter, 108-row one in theta mode")
+    rng = np.random.default_rng(0)
+    thetas = theta_true[None] + torch.as_tensor(
+        rng.normal(scale=0.1, size=(EGFR_BATCH, 11)), device="cuda")
+
+    def run():
+        ev = proj.evaluate(thetas, with_jac=True)
+        torch.cuda.synchronize()
+        return ev
+
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    ev = run()
+    first_s = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    by_n = gj_shape_counts("gj_inverse_f32")
+    status = ev.status.cpu().numpy().reshape(-1)
+    n_ok = int((status == 1).sum())
+    check(n_ok == EGFR_BATCH,
+          f"egfr-sens: {n_ok}/{EGFR_BATCH} members status == 1")
+    check(tuple(ev.residuals.shape) == (EGFR_BATCH, 108)
+          and tuple(ev.jacobian.shape) == (EGFR_BATCH, 108, 11),
+          f"egfr-sens: shapes {tuple(ev.residuals.shape)}, "
+          f"{tuple(ev.jacobian.shape)}")
+    check(bool(torch.isfinite(ev.residuals).all()
+               and torch.isfinite(ev.jacobian).all()),
+          "egfr-sens: non-finite residuals or Jacobian (the Schur guard "
+          "poisons a member with NaN)")
+    check_schur_launches("egfr-sens", launches, by_n, "gj_inverse_f32",
+                         "gj_inverse_major_f32")
+    nsteps = ev.nsteps.cpu().numpy().reshape(-1)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    print(f"[egfr-sens] {card}: problem built in {build_s:.2f} s (the "
+          f"rtol=1e-8 data simulation on the card); {n_ok}/{EGFR_BATCH} "
+          f"members status == 1, no NaN; mean_nsteps {nsteps.mean():.2f} "
+          f"(max {nsteps.max()}); launches {launches}, K1 by n {by_n}; "
+          f"first batch {first_s:.3f} s; best of 2 {best:.3f} s "
+          f"({[round(t, 3) for t in times]}); {EGFR_BATCH / best:.2f} "
+          f"integrations/s", flush=True)
+
+    # 2 members again on the CPU, where the kernels' plain versions run
+    cpu = project_on_cpu(proj)
+    ref = cpu.evaluate(thetas[:2].cpu(), with_jac=True)
+    r, r_ref = ev.residuals[:2].cpu(), ref.residuals
+    J, J_ref = ev.jacobian[:2].cpu(), ref.jacobian
+    r_rel = float((r - r_ref).abs().max() / r_ref.abs().max())
+    j_rel = float((J - J_ref).abs().max() / J_ref.abs().max())
+    ns_cpu = ref.nsteps.numpy().reshape(-1)
+    ns_dev = np.abs(nsteps[:2] - ns_cpu) / ns_cpu
+    print(f"[egfr-sens] CPU cross-check of 2 members: residuals rel "
+          f"{r_rel:.3e} (bound 1e-7), Jacobian rel {j_rel:.3e} (bound "
+          f"1e-4), nsteps gpu {nsteps[:2].tolist()} cpu {ns_cpu.tolist()}",
+          flush=True)
+    check(bool((ref.status == 1).all()), "egfr-sens CPU cross-check: status")
+    check(r_rel <= 1e-7,
+          f"egfr-sens CPU cross-check: residuals rel {r_rel:.3e} > 1e-7")
+    check(j_rel <= 1e-4,
+          f"egfr-sens CPU cross-check: Jacobian rel {j_rel:.3e} > 1e-4")
+    check(bool((ns_dev <= 0.05).all()),
+          f"egfr-sens CPU cross-check: nsteps differ by more than 5%: "
+          f"{ns_dev}")
+
+    # the golden SciPy trajectory (tests/golden/egfr.npz) on the card,
+    # through block-Schur, with the reference's bound
+    g = np.load(os.path.join(ROOT, "tests", "golden", "egfr.npz"))
+    gres = model.simulate(
+        g["p"][None], tuple(g["t_span"]), g["t_eval"],
+        config=SolverConfig(rtol=1e-6, atol=1e-9, max_steps=4096,
+                            linear_solver="pallas"), device="cuda")
+    err = float(np.max(np.abs(gres.ys[0].cpu().numpy() - g["ys"])
+                       / (1e-6 + np.max(np.abs(g["ys"])))))
+    print(f"[egfr-sens] golden egfr trajectory on the card: err {err:.3e} "
+          f"(bound 1e-3), {int(gres.nsteps[0])} steps", flush=True)
+    check(int(gres.status[0]) == 1, "egfr golden: status")
+    check(err < 1e-3, f"egfr golden: err {err:.3e} >= 1e-3")
+    return launches, (proj, theta_true, thetas, ev)
+
+
+def phase_egfr_fit(card, problem):
+    """64 Latin-hypercube starts of the EGFR-scale fit through
+    ``make_multistart_runner`` in chunks of 2 LM iterations."""
+    import torch
+
+    from tpusysbio_torch import FitConfig
+    from tpusysbio_torch.fit import latin_hypercube, make_multistart_runner
+    from tpusysbio_torch.linalg import gpu_lu
+
+    proj, theta_true = problem[0], problem[1]
+    starts = latin_hypercube(torch.Generator().manual_seed(0), EGFR_BATCH,
+                             theta_true - 0.5, theta_true + 0.5)
+    run = make_multistart_runner(
+        proj.residuals, proj.residuals_and_jacobian,
+        FitConfig(max_iter=EGFR_FIT_ITERS, eval_mode="lockstep"),
+        iter_chunk=EGFR_ITER_CHUNK)
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    out = run(starts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    by_n = gj_shape_counts("gj_inverse_f32")
+    check_schur_launches("egfr-fit", launches, by_n, "gj_inverse_f32",
+                         "gj_inverse_major_f32")
+    cost = out.cost.cpu().numpy()
+    n_finite = int(np.isfinite(cost).sum())
+    check(tuple(out.theta.shape) == (EGFR_BATCH, 11)
+          and tuple(out.cov.shape) == (EGFR_BATCH, 11, 11),
+          f"egfr-fit: shapes {tuple(out.theta.shape)}")
+    check(n_finite >= 56,
+          f"egfr-fit: only {n_finite}/{EGFR_BATCH} costs are finite")
+    best_cost = float(np.nanmin(cost))
+    cost_true = float(proj.cost(theta_true))
+    status = out.status.cpu().numpy()
+    print(f"[egfr-fit] {card}: N={EGFR_BATCH} starts in theta_true +- 0.5, "
+          f"{EGFR_FIT_ITERS} lockstep LM iterations (iter_chunk "
+          f"{EGFR_ITER_CHUNK}): wall {wall:.2f} s, "
+          f"{EGFR_BATCH / wall * 60.0:.2f} fits/min; {n_finite}/"
+          f"{EGFR_BATCH} finite costs, {int((status > 0).sum())} converged, "
+          f"mean LM iterations {out.n_iter.cpu().numpy().mean():.2f}; best "
+          f"cost {best_cost:.6f}, cost at theta_true {cost_true:.6f}; "
+          f"launches {launches}, K1 by n {by_n}", flush=True)
+    check(best_cost <= cost_true,
+          f"egfr-fit: best cost {best_cost} > cost at theta_true "
+          f"{cost_true}")
+    return launches
+
+
+def phase_egfr_major(problem):
+    """One EGFR evaluation of 16 members under each layout: K3 takes K1's
+    place at both block shapes and gives the same bits."""
+    import torch
+
+    from tpusysbio_torch.linalg import gpu_lu
+
+    proj, _, thetas, ev64 = problem
+    sub = thetas[:EGFR_MAJOR_BATCH]
+
+    def one(layout):
+        with gj_layout(layout):
+            gpu_lu.reset_launches()
+            t0 = time.perf_counter()
+            ev = proj.evaluate(sub, with_jac=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            name = ("gj_inverse_major_f32" if layout == "major"
+                    else "gj_inverse_f32")
+            return ev, dict(gpu_lu.LAUNCHES), gj_shape_counts(name), secs
+
+    minor, l_minor, n_minor, s_minor = one("minor")
+    major, l_major, n_major, s_major = one("major")
+    check_schur_launches("egfr-major ('minor' run)", l_minor, n_minor,
+                         "gj_inverse_f32", "gj_inverse_major_f32")
+    check_schur_launches("egfr-major", l_major, n_major,
+                         "gj_inverse_major_f32", "gj_inverse_f32")
+    check(bool((major.status == 1).all()),
+          "egfr-major: not every member finished")
+    check(bool(torch.equal(major.residuals, minor.residuals)),
+          f"egfr-major: residuals differ between the layouts by "
+          f"{float((major.residuals - minor.residuals).abs().max()):.3e}")
+    check(bool(torch.equal(major.jacobian, minor.jacobian)),
+          "egfr-major: Jacobians differ between the layouts")
+    check(bool(torch.equal(major.nsteps, minor.nsteps)),
+          "egfr-major: step counts differ between the layouts")
+    # a member's result does not depend on who shares its batch: the first
+    # 16 of the batch of 64 took the same steps
+    same = bool(torch.equal(minor.nsteps, ev64.nsteps[:EGFR_MAJOR_BATCH]))
+    print(f"[egfr-major] N={EGFR_MAJOR_BATCH}: 'major' launches {l_major} "
+          f"(K3 by n {n_major}) in {s_major:.2f} s, 'minor' launches "
+          f"{l_minor} (K1 by n {n_minor}) in {s_minor:.2f} s; residuals, "
+          f"Jacobian and step counts equal bit for bit; step counts equal "
+          f"to the same members' in the batch of {EGFR_BATCH}: {same}",
+          flush=True)
+    return l_major
+
+
 def phase_profile(run, label):
     """One call of ``run`` under torch.profiler: device-busy share, the
     number of device kernels and device time by kernel name."""
@@ -863,6 +1303,17 @@ def phase_profile(run, label):
     for name, (tot, cnt) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:15]:
         print(f"[profile]   {tot / 1e3:9.2f} ms {cnt:7d}x  {name[:90]}")
+    # the port's own kernels and the library's matrix products (the Schur
+    # products of a factorization and the f32 solves among them)
+    for label, part in (("Gauss-Jordan kernels", "gj_inverse"),
+                        ("refined-solve kernel", "refine_solve"),
+                        ("matrix products (gemm kernels)", "gemm")):
+        tot = sum(v[0] for k, v in by_name.items() if part in k)
+        cnt = sum(v[1] for k, v in by_name.items() if part in k)
+        print(f"[profile]   {label}: {tot / 1e3:.2f} ms in {cnt} kernels "
+              f"({100 * tot / 1e6 / wall:.2f}% of wall, "
+              f"{100 * tot / max(busy_us, 1):.1f}% of device busy)",
+              flush=True)
 
 
 def main():
@@ -893,12 +1344,18 @@ def main():
     l_main, run = phase_main_path()
     (l_fit, l_screen, l_polish), problem = phase_fit()
     l_major = phase_fit_major(problem)
+    l_egfr_sens, egfr = phase_egfr_sens(card)
+    l_egfr_fit = phase_egfr_fit(card, egfr)
+    l_egfr_major = phase_egfr_major(egfr)
     if "--profile" in sys.argv[1:]:
         phase_profile(run, "one main-path batch")
         screen, starts = problem[1], problem[3]
         phase_profile(lambda: (screen.residuals_and_jacobian(starts),
                                torch.cuda.synchronize()),
                       "one screening evaluation of 256 starts")
+        phase_profile(lambda: (egfr[0].evaluate(egfr[2], with_jac=True),
+                               torch.cuda.synchronize()),
+                      "one EGFR evaluation of 64 members with Jacobian")
     # the kernels' share of [fit]: each phase's launches times the
     # kernel's time at that phase's batch
     k1_ms, k2_ms = kernels[0]["ms_by_batch"], kernels[1]["ms_by_batch"]
@@ -911,17 +1368,39 @@ def main():
           f"{k1_ms[POLISH_BATCH]:.4f} ms + K2 {l_polish['refine_solve']} x "
           f"{k2_ms[POLISH_BATCH]:.4f} ms (B={POLISH_BATCH}) = "
           f"{fit_ms / 1e3:.4f} s", flush=True)
+    # K1 at the block-Schur shapes was timed beside K3 in [K3]
+    beside = kernels[2].pop("beside_k1")
+    kernels[0]["ms_by_batch"] = {**kernels[0]["ms_by_batch"],
+                                 4096: beside["ms_by_batch"][4096]}
+    kernels[0]["max_abs_err_by_case"].update(
+        {k: v for k, v in beside["max_abs_err_by_case"].items()
+         if "egfr" in k})
+    for key in ("ms_by_shape", "bound_ms_by_shape", "library_ms_by_shape"):
+        kernels[0][key] = beside[key]
+        kernels[1][key] = {}
+    # the Gauss-Jordan kernel's share of one [egfr-sens] batch
+    egfr_ms = sum(l_egfr_sens["gj_inverse_f32"] / 2 * ms
+                  for ms in kernels[0]["ms_by_shape"].values())
+    print(f"[egfr-sens] device time of the kernel: K1 "
+          f"{l_egfr_sens['gj_inverse_f32'] // 2} x "
+          f"({' + '.join(f'{v:.4f}' for v in kernels[0]['ms_by_shape'].values())}"
+          f") ms = {egfr_ms / 1e3:.4f} s per batch", flush=True)
     for kern in kernels:
-        by_path = {"main": l_main[kern["name"]], "fit": l_fit[kern["name"]],
-                   "fit-major": l_major[kern["name"]]}
+        name = kern["name"]
+        by_path = {"main": l_main[name], "fit": l_fit[name],
+                   "fit-major": l_major[name],
+                   "egfr-sens": l_egfr_sens[name],
+                   "egfr-fit": l_egfr_fit[name],
+                   "egfr-major": l_egfr_major[name]}
         kern["launches_by_path"] = by_path
         kern["launches"] = sum(by_path.values())
         check(kern["launches"] > 0,
               f"kernel {kern['name']} was launched on none of the paths")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "max_abs_err_by_case", "ms",
-            "ms_by_batch", "host_paced_ms_by_batch", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "ms_by_batch", "host_paced_ms_by_batch", "ms_by_shape",
+            "bound_ms_by_shape", "library_ms_by_shape", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
     print(card)

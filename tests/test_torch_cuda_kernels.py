@@ -32,12 +32,19 @@ def _gj(monkeypatch, layout, a):
     return gpu_lu.gj_inverse_f32(a)
 
 
-# every width the register kernel is instantiated for (8, 16, 24, 32 with
-# one row per lane; 48, 64 with two), their edges, and the paths' batches
+# every width the register kernels are instantiated for (K1: 8, 16, 24, 32
+# with one row per lane, 40 to 64 with two; K3: groups of 8 lanes up to 24,
+# of 16 up to 40, of 32 beyond), their edges, the paths' batches (the
+# block-Schur shapes (64, 64) and (64, 35) of the 99-state model among
+# them), batches that leave K3's last warp with groups that have no matrix
+# (B not a multiple of 4 or 2), and batches on both sides of the warp count
+# from which K3 stages its matrices through shared memory
 GJ_SHAPES = [(1, 1), (7, 1), (256, 4), (16, 8), (64, 9), (256, 16),
-             (16, 22), (64, 22), (256, 22), (1024, 22), (1, 24), (64, 25),
-             (256, 31), (1, 32), (5, 32), (1024, 32), (1, 33), (33, 33),
-             (256, 33), (64, 48), (16, 49), (1, 64), (256, 64), (1024, 64)]
+             (16, 22), (64, 22), (67, 22), (256, 22), (401, 22), (1024, 22),
+             (4096, 22), (1, 24), (64, 25), (256, 31), (1, 32), (5, 32),
+             (1024, 32), (1, 33), (33, 33), (256, 33), (64, 35), (201, 35),
+             (3, 40), (64, 41), (64, 48), (16, 49), (1, 64), (64, 64),
+             (256, 64), (1024, 64)]
 
 
 @pytest.mark.cuda
@@ -69,9 +76,9 @@ def test_gj_kernel_singular_finite_and_nan_nonfinite(cuda_device,
 @pytest.mark.parametrize("B,n", GJ_SHAPES)
 def test_gj_major_kernel_matches_plain_and_k1(cuda_device, monkeypatch, B,
                                               n):
-    """K3 (a shared-memory tile per warp) against the plain version it
-    shares with K1, and against K1 (the matrix in registers): same pivots,
-    same roundings, so equal to the bit."""
+    """K3 (a group of lanes per matrix, several matrices a warp) against
+    the plain version it shares with K1, and against K1 (a warp per
+    matrix): same pivots, same roundings, so equal to the bit."""
     rng = np.random.default_rng(100 + n)
     a = torch.as_tensor(_newton_like(rng, B, n), dtype=torch.float32,
                         device=cuda_device)
@@ -88,13 +95,13 @@ def test_gj_major_kernel_matches_plain_and_k1(cuda_device, monkeypatch, B,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [5, 22, 33, 64])
+@pytest.mark.parametrize("n", [5, 22, 33, 35, 64])
 def test_gj_kernels_agree_bitwise_when_rows_are_exchanged(cuda_device,
                                                           monkeypatch, n):
     """General matrices (no dominant diagonal): most pivot steps exchange
-    rows, which K1 does by renaming and K3 by moving them."""
+    rows, and the matrices that share a K3 warp pivot on different rows."""
     rng = np.random.default_rng(400 + n)
-    a = torch.as_tensor(rng.standard_normal((64, n, n)), dtype=torch.float32,
+    a = torch.as_tensor(rng.standard_normal((66, n, n)), dtype=torch.float32,
                         device=cuda_device)
     k1 = _gj(monkeypatch, "minor", a)
     k3 = _gj(monkeypatch, "major", a)
@@ -128,12 +135,78 @@ def test_gj_kernel_needs_pivoting(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_gj_major_kernel_needs_pivoting(cuda_device, monkeypatch):
-    """A permutation matrix: every pivot step swaps, and the column swaps
-    at the end must undo them."""
+    """A permutation matrix: every pivot step exchanges rows, and the
+    store's two permutations must undo them, in a group of 8 lanes."""
     perm = torch.tensor([3, 0, 4, 1, 2])
     a = torch.eye(5, device=cuda_device)[perm][None].contiguous()
     got = _gj(monkeypatch, "major", a)
     assert torch.equal(got, a.transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_gj_major_kernel_nan_member_leaves_its_warp_alone(cuda_device,
+                                                          monkeypatch):
+    """Four n=22 matrices share a K3 warp and its instruction stream: a
+    NaN in one of them must not reach the others."""
+    rng = np.random.default_rng(9)
+    a = torch.as_tensor(_newton_like(rng, 6, 22), dtype=torch.float32,
+                        device=cuda_device)
+    clean = _gj(monkeypatch, "major", a)
+    a[2, 3, 4] = float("nan")
+    got = _gj(monkeypatch, "major", a)
+    keep = [0, 1, 3, 4, 5]
+    assert torch.equal(got[keep], clean[keep])
+    assert not bool(torch.isfinite(got[2]).all())
+
+
+@pytest.mark.cuda
+def test_gj_major_division_rounds_as_fdiv_rn(cuda_device):
+    """K3's branch-free division against ``__fdiv_rn`` bit for bit, over
+    all exponents, both zeros, infinities and NaN."""
+    from tpusysbio_torch.linalg import _build
+
+    rng = np.random.default_rng(10)
+    count = 1 << 20
+
+    def wide():
+        with np.errstate(over="ignore"):
+            x = np.ldexp(rng.uniform(1.0, 2.0, count),
+                         rng.integers(-150, 130, count)).astype(np.float32)
+        x *= rng.choice([-1.0, 1.0], count).astype(np.float32)
+        for value in (0.0, -0.0, np.inf, np.nan):
+            x[rng.integers(0, count, count // 64)] = value
+        return torch.as_tensor(x, device=cuda_device)
+
+    x, b = wide(), wide()
+    b[::2] = torch.as_tensor(np.ldexp(1.5, rng.integers(-30, 30, count // 2))
+                             .astype(np.float32), device=cuda_device)
+    got, ref = torch.empty_like(x), torch.empty_like(x)
+    err = _build.load().tsb_gj_major_divide_check(
+        x.data_ptr(), b.data_ptr(), got.data_ptr(), ref.data_ptr(), count,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    same = ((got.view(torch.int32) == ref.view(torch.int32))
+            | (got.isnan() & ref.isnan()))
+    assert bool(same.all())
+
+
+@pytest.mark.cuda
+def test_gj_launches_are_counted_by_size(cuda_device, monkeypatch):
+    """Block-Schur elimination at n=99 launches the kernel of the layout
+    once at n=64 and once at n=35, counted by size."""
+    rng = np.random.default_rng(11)
+    a = torch.as_tensor(np.eye(99)[None] - 0.05 * rng.standard_normal(
+        (3, 99, 99)), device=cuda_device)
+    for layout, name in (("minor", "gj_inverse_f32"),
+                         ("major", "gj_inverse_major_f32")):
+        monkeypatch.setattr(gpu_lu, "_LAYOUT", layout)
+        gpu_lu.reset_launches()
+        x = gpu_lu.inverse(a)
+        assert gpu_lu.LAUNCHES[name] == 2
+        assert gpu_lu.LAUNCHES_BY_N == {(name, 64): 1, (name, 35): 1}
+        eye = torch.eye(99, dtype=a.dtype, device=cuda_device)
+        assert float((x @ a - eye).abs().max()) < 1e-11
 
 
 @pytest.mark.cuda

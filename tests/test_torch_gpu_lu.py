@@ -1,9 +1,12 @@
 """The port's Newton linear algebra (``tpusysbio_torch/linalg``) against
 the reference's ``pallas_lu`` (Pallas in interpret mode on the CPU).
 
-On the CPU the K1 and K2 wrappers run their plain PyTorch twins; the
+On the CPU the K1, K2 and K3 wrappers run their plain PyTorch twins; the
 kernels themselves are compared with those twins on the card by
-``tests/test_torch_cuda_kernels.py`` and by ``chip_smoke.py``.
+``tests/test_torch_cuda_kernels.py`` and by ``chip_smoke.py``. The
+register schemes of K1 and K3 (which lane holds which row, how the pivot is
+found and the row handed out, where the store puts each element) are
+emulated here in numpy, lane by lane.
 """
 
 import jax.numpy as jnp
@@ -208,53 +211,194 @@ def _emulate_k1(a):
     return out
 
 
-def _assert_k1_emulation_equals_plain(a):
+def _emulate_k1_batch(a):
+    return np.stack([_emulate_k1(m) for m in a])
+
+
+# --------------------------------------------------------------------------
+# K3's scheme on the card, emulated: several matrices per warp, a matrix in
+# the registers of a group of G lanes, R rows a lane
+# --------------------------------------------------------------------------
+
+# (W, G, R) by ceil(n / 8), as csrc/gj_inverse_major.cu dispatches
+_K3_SHAPES = {1: (8, 8, 1), 2: (16, 8, 2), 3: (24, 8, 3), 4: (32, 16, 2),
+              5: (40, 16, 3), 6: (48, 32, 2), 7: (56, 32, 2), 8: (64, 32, 2)}
+_INF_BITS = 0x7F800000
+
+
+def _emulate_k3_warp(a, out, warp, W, G, R):
+    """One warp of ``csrc/gj_inverse_major.cu`` in numpy f32, every array
+    indexed by the warp's 32 lanes as the kernel's registers are. A group of
+    G lanes owns matrix ``warp * 32/G + lane // G``; lane ``sub`` of a group
+    holds physical rows ``sub + G*i`` (i < R) in ``row[lane, i, :W]`` and
+    their logical positions in ``pos[lane, i]``. Groups without a matrix run
+    along on zeros. The search is the kernel's 64-bit butterfly, the pivot
+    row is picked by predicated moves and handed out by shuffles of width
+    G, lane ``c % G`` divides element c, and the store finds each output
+    column by ballots cut to the group."""
+    f32 = np.float32
+    B, n = a.shape[0], a.shape[-1]
+    lane = np.arange(32)
+    sub = lane % G
+    first = lane - sub
+    m = warp * (32 // G) + lane // G
+    valid = m < B
+    Q = -(-W // G)
+    row = np.zeros((32, R, W), f32)
+    pos = np.zeros((32, R), np.int64)
+    for i in range(R):
+        r = sub + G * i
+        pos[:, i] = r
+        take = valid & (r < n)
+        row[take, i, :n] = a[m[take], r[take], :]
+
+    def shfl(x, src):            # __shfl_sync(full, x, src, G)
+        return x[first + src % G]
+
+    def find_pivot(k):
+        bits = np.abs(row[:, :, 0]).view(np.uint32).astype(np.uint64)
+        offers = (pos >= k) & (pos < n) & (bits <= _INF_BITS)
+        key = np.where(offers, bits + 1, 0).astype(np.uint64)
+        place = (pos << 7 | np.arange(R)[None, :] << 5
+                 | sub[:, None]).astype(np.uint64)
+        word = np.where(offers | (pos == k),
+                        key << np.uint64(32)
+                        | (~place & np.uint64(0xFFFFFFFF)),
+                        np.uint64(0))
+        best = word.max(axis=1)
+        off = G // 2
+        while off > 0:           # __shfl_xor_sync butterfly
+            best = np.maximum(best, best[lane ^ off])
+            off //= 2
+        return (~best & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+    with np.errstate(all="ignore"):
+        won = find_pivot(0)
+        for k in range(n):
+            p, slot, src = won >> 7, (won >> 5) & 3, won & 31
+            pos = np.where(pos == p[:, None], k,
+                           np.where(pos == k, p[:, None], pos))
+            own = row[:, 0, :].copy()
+            for i in range(1, R):
+                own = np.where((slot == i)[:, None], row[:, i, :], own)
+            u = shfl(own, src)
+            pivot = u[:, 0].copy()
+            u[:, 0] = f32(1.0)
+            mine = np.zeros((32, Q), f32)
+            for c in range(W):
+                keep = sub == c % G
+                mine[keep, c // G] = u[keep, c]
+            pivot = np.where(np.abs(pivot) > f32(1e-30), pivot,
+                             np.where(pivot >= 0, f32(1e-30), f32(-1e-30)))
+            mine = mine / pivot[:, None]
+            scaled = np.stack([shfl(mine[:, c // G], np.full(32, c % G))
+                               for c in range(W)], axis=1)
+            is_pivot = pos == k
+            f = row[:, :, 0].copy()
+            cur = row.copy()
+            cur[:, :, 0] = f32(0.0)
+            val = np.where(is_pivot[:, :, None], scaled[:, None, :],
+                           cur - f[:, :, None] * scaled[:, None, :])
+            row = np.roll(val, -1, axis=2)
+            won = find_pivot(k + 1)
+    for _ in range(n, W):
+        row = np.roll(row, -1, axis=2)
+    group_bits = 0xFFFFFFFF >> (32 - G)
+    for c in range(n):
+        d = np.zeros(32, np.int64)
+        for i in range(R):
+            ballot = int(sum(1 << l for l in lane[pos[:, i] == c]))
+            held = (ballot >> first) & group_bits
+            ffs = np.array([(int(h) & -int(h)).bit_length() for h in held])
+            d = np.where(held != 0, G * i + ffs - 1, d)
+        for i in range(R):
+            put = valid & (pos[:, i] < n)
+            out[m[put], pos[put, i], d[put]] = row[put, i, c]
+
+
+def _emulate_k3_batch(a):
+    n = a.shape[-1]
+    W, G, R = _K3_SHAPES[(n + 7) // 8]
+    out = np.full_like(a, np.float32(7.0))   # every element must be stored
+    for warp in range(-(-a.shape[0] // (32 // G))):
+        _emulate_k3_warp(a, out, warp, W, G, R)
+    return out
+
+
+_SCHEMES = {"k1": _emulate_k1_batch, "k3": _emulate_k3_batch}
+
+
+@pytest.fixture(params=sorted(_SCHEMES))
+def emulate(request):
+    """The register scheme of K1 (a matrix across a warp) or of K3 (a
+    matrix across a group of lanes, several matrices a warp) on a batch."""
+    return _SCHEMES[request.param]
+
+
+def _assert_emulation_equals_plain(emulate, a):
     ref = gpu_lu.gj_inverse_f32_plain(torch.as_tensor(a)).numpy()
-    got = np.stack([_emulate_k1(m) for m in a])
+    got = emulate(a)
     np.testing.assert_array_equal(got, ref)
     return got
 
 
-@pytest.mark.parametrize("n", [1, 5, 22, 32, 33, 64])
-def test_gj_register_scheme_equals_plain_bitwise(n):
+@pytest.mark.parametrize("n", [1, 5, 22, 32, 33, 40, 64])
+def test_gj_register_scheme_equals_plain_bitwise(emulate, n):
     """Both do one division per pivot-row element and one unfused
     multiply-subtract per eliminated element, so they agree to the bit. The
-    general matrices (scale 1) make most steps exchange rows."""
+    general matrices (scale 1) make most steps exchange rows. 7 matrices:
+    not a multiple of K3's 4 or 2 matrices a warp, so its last warp has
+    groups without a matrix."""
     rng = np.random.default_rng(200 + n)
-    newton = _newton_like(rng, 3, n).astype(np.float32)
+    newton = _newton_like(rng, 4, n).astype(np.float32)
     general = rng.standard_normal((3, n, n)).astype(np.float32)
-    _assert_k1_emulation_equals_plain(np.concatenate([newton, general]))
+    _assert_emulation_equals_plain(emulate,
+                                   np.concatenate([newton, general]))
 
 
-def test_gj_register_scheme_tied_pivots_take_the_lowest_row():
+def test_gj_register_scheme_tied_pivots_take_the_lowest_row(emulate):
     a = np.array([[[2.0, 1.0, 0.0], [-2.0, 3.0, 1.0], [2.0, 0.0, 5.0]],
                   [[0.0, 1.0, 2.0], [1.0, 1.0, 0.0], [-1.0, 1.0, 3.0]]],
                  dtype=np.float32)
-    got = _assert_k1_emulation_equals_plain(a)
+    got = _assert_emulation_equals_plain(emulate, a)
     np.testing.assert_allclose(got @ a, np.broadcast_to(np.eye(3), a.shape),
                                atol=1e-5)
 
 
-def test_gj_register_scheme_singular_gives_finite_output():
+def test_gj_register_scheme_singular_gives_finite_output(emulate):
     a = np.array([[[1.0, 2.0], [2.0, 4.0]],
                   [[0.0, 0.0], [0.0, 0.0]]], dtype=np.float32)
-    assert np.isfinite(_assert_k1_emulation_equals_plain(a)).all()
+    assert np.isfinite(_assert_emulation_equals_plain(emulate, a)).all()
 
 
-def test_gj_register_scheme_nan_gives_nonfinite_output():
+def test_gj_register_scheme_nan_gives_nonfinite_output(emulate):
     a = np.eye(3, dtype=np.float32)
     a[1, 2] = np.nan
-    assert not np.isfinite(_emulate_k1(a)).all()
+    assert not np.isfinite(emulate(a[None])).all()
     # all NaN: nothing wins the search, the NaN pivot becomes -1e-30
     a = np.full((2, 2), np.nan, dtype=np.float32)
-    assert not np.isfinite(_emulate_k1(a)).all()
+    assert not np.isfinite(emulate(a[None])).all()
 
 
-def test_gj_register_scheme_permutation_matrix():
+def test_gj_register_scheme_permutation_matrix(emulate):
     """Every step exchanges rows; the store's two permutations must undo
     them: the inverse of a permutation matrix is its transpose."""
     a = np.eye(5, dtype=np.float32)[[3, 0, 4, 1, 2]]
-    np.testing.assert_array_equal(_emulate_k1(a), a.T)
+    np.testing.assert_array_equal(emulate(a[None])[0], a.T)
+
+
+def test_gj_register_schemes_agree_on_a_nan_member(emulate):
+    """A NaN member poisons only itself: its neighbours in the warp (K3
+    inverts several matrices in one instruction stream) come out as the
+    plain version gives them."""
+    rng = np.random.default_rng(77)
+    a = _newton_like(rng, 5, 22).astype(np.float32)
+    a[2, 3, 4] = np.nan
+    got = emulate(a)
+    ref = gpu_lu.gj_inverse_f32_plain(torch.as_tensor(a)).numpy()
+    keep = [0, 1, 3, 4]
+    np.testing.assert_array_equal(got[keep], ref[keep])
+    assert not np.isfinite(got[2]).all()
 
 
 # --------------------------------------------------------------------------
@@ -389,6 +533,7 @@ ptxas info    : Used 255 registers, used 0 barriers, 376 bytes cmem[0]
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
+    gpu_lu.LAUNCHES_BY_N["gj_inverse_f32", 22] = 3
     gpu_lu.reset_launches()
     rng = np.random.default_rng(5)
     a = torch.as_tensor(_newton_like(rng, 2, 6))
@@ -397,6 +542,7 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
                                                                      1))))
     assert gpu_lu.LAUNCHES == {"gj_inverse_f32": 0, "refine_solve": 0,
                                "gj_inverse_major_f32": 0}
+    assert gpu_lu.LAUNCHES_BY_N == {}
 
 
 # --------------------------------------------------------------------------

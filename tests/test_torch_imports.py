@@ -85,6 +85,8 @@ def _entry_points():
         "default_device": default_device,
         "library.mapk_huang_ferrell": library.mapk_huang_ferrell,
         "library.mapk_true_params": library.mapk_true_params,
+        "library.egfr_like": library.egfr_like,
+        "library.egfr_true_params": library.egfr_true_params,
         "convert.network_from_numpy": lambda: convert.network_from_numpy(
             net.species, net.reaction_names, net.reactants.numpy(),
             net.stoich.numpy()),
@@ -97,7 +99,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", [
     "default_device", "library.mapk_huang_ferrell",
-    "library.mapk_true_params", "convert.network_from_numpy",
+    "library.mapk_true_params", "library.egfr_like",
+    "library.egfr_true_params", "convert.network_from_numpy",
     "convert.params_from_numpy", "OdeModel.simulate",
     "OdeModel.simulate_sensitivities", "ExperimentBatch.from_experiments",
     "ParameterMap.create", "convert.batch_from_reference",
@@ -113,7 +116,8 @@ def test_port_files_cover_the_fit_subpackages():
     for sub in ("data/experiment.py", "project/residuals.py",
                 "project/mapping.py", "project/scale_factors.py",
                 "optim/lm.py", "fit/multistart.py", "fit/sampling.py",
-                "convert.py", "linalg/gpu_lu.py"):
+                "convert.py", "linalg/gpu_lu.py", "linalg/compare_designs.py",
+                "model/library.py"):
         assert f"tpusysbio_torch/{sub}" in rel
 
 

@@ -8,9 +8,10 @@ kernels (``linalg/csrc/``) replace its three TPU kernels:
   every Newton matrix ``I - cJ``; one warp per matrix, the matrix in the
   warp's registers;
 - K3 (``csrc/gj_inverse_major.cu``) replaces ``_gj_batch_major_kernel``:
-  the same function, one warp per matrix over a shared-memory tile;
-  ``gj_inverse_f32`` launches it in K1's place when
-  ``TPUSYSBIO_GJ_LAYOUT=major``, the reference's switch;
+  the same function with the batch in the warp: a group of 8, 16 or 32
+  lanes holds a matrix in registers and a warp inverts 4, 2 or 1 matrices
+  in one instruction stream; ``gj_inverse_f32`` launches it in K1's place
+  when ``TPUSYSBIO_GJ_LAYOUT=major``, the reference's switch;
 - K2, ``refine_solve`` (``csrc/refine_solve.cu``), replaces
   ``_make_refine_kernel``: the f64 solve of one column from the f32
   inverse with three rounds of iterative refinement; one warp per member.
@@ -43,6 +44,9 @@ _REFINE_STEPS = 3
 # to show which kernels it went through.
 LAUNCHES = {"gj_inverse_f32": 0, "refine_solve": 0,
             "gj_inverse_major_f32": 0}
+# The Gauss-Jordan launches again by (kernel, n): block-Schur elimination
+# gives the kernel two sizes per factorization, and a run can show both.
+LAUNCHES_BY_N = {}
 
 # Which Gauss-Jordan kernel ``gj_inverse_f32`` launches: 'minor' (K1) or
 # 'major' (K3), read once at import as the reference reads it.
@@ -52,6 +56,7 @@ _LAYOUT = os.environ.get("TPUSYSBIO_GJ_LAYOUT", "minor")
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_N.clear()
 
 
 def _check_cuda(name, device, *specs):
@@ -121,9 +126,9 @@ gj_inverse_major_f32_plain = gj_inverse_f32_plain
 def gj_inverse_f32(a: torch.Tensor) -> torch.Tensor:
     """Batched f32 inverse of ``a`` (B, n, n), n <= ``MAX_KERNEL_N``.
 
-    CUDA tensors launch K3 (``csrc/gj_inverse_major.cu``) when the
-    module's ``_LAYOUT`` is ``'major'`` and K1 (``csrc/gj_inverse.cu``)
-    otherwise. CPU tensors run :func:`gj_inverse_f32_plain`."""
+    CUDA tensors launch K3 (``csrc/gj_inverse_major.cu``, several matrices
+    a warp) when the module's ``_LAYOUT`` is ``'major'`` and K1
+    (``csrc/gj_inverse.cu``, one matrix a warp) otherwise. CPU tensors run :func:`gj_inverse_f32_plain`."""
     if a.device.type == "cpu":
         return gj_inverse_f32_plain(a)
     name = ("gj_inverse_major_f32" if _LAYOUT == "major"
@@ -140,6 +145,7 @@ def gj_inverse_f32(a: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_N[name, n] = LAUNCHES_BY_N.get((name, n), 0) + 1
     return out
 
 

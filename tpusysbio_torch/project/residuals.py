@@ -159,7 +159,9 @@ class Project:
         # the (member, time) pairs flattened to one batch
         T = t_eval.shape[1]
         ys_f = res.ys.reshape(Bm * T, -1)
-        p_f = p[:, None, :].expand(Bm, T, P).reshape(Bm * T, P)
+        # copies, not stride-0 views (which reshape keeps when Bm == 1):
+        # forward-mode AD refuses a primal whose elements share memory
+        p_f = p.repeat_interleave(T, dim=0)
         obs_traj = model.observables(ys_f, p_f).reshape(Bm, T, -1)
         if not with_sens:
             return obs_traj, None, res.status, res.nsteps
@@ -170,7 +172,7 @@ class Project:
             P, dtype=p.dtype, device=p.device).expand(Bm, P, P)
         K = dirs.shape[-1]
         sens_f = res.sens.reshape(Bm * T, -1, K)
-        dirs_f = dirs[:, None].expand(Bm, T, P, K).reshape(Bm * T, P, K)
+        dirs_f = dirs.repeat_interleave(T, dim=0)
 
         def obs_dcol(s_col, c_col):
             return torch.func.jvp(model.observables, (ys_f, p_f),
