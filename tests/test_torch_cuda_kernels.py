@@ -267,3 +267,64 @@ def test_wrappers_reject_bad_inputs(cuda_device, monkeypatch):
     gpu_lu.refine_solve(a, a.double(), b)
     torch.cuda.synchronize()
     assert gpu_lu.LAUNCHES["refine_solve"] == before["refine_solve"] + 1
+
+
+# --------------------------------------------------------------------------
+# Real Newton matrices of the small library models (n = 2, 3, 4, 6)
+# --------------------------------------------------------------------------
+
+# model -> (library constructor, fixture whose trajectory gives the states)
+SMALL_MODELS = {"lotka_volterra": "lotka", "michaelis_menten": "mm3",
+                "jak_stat": "jakstat", "repressilator": "repressilator"}
+
+
+def _small_newton(constructor, fixture, B, device):
+    """I - cJ at states along the model's golden trajectory, parameters
+    log-normal around the fixture's and c log-uniform in [1e-3, 3]; J by
+    forward-mode AD."""
+    import os
+
+    from tpusysbio_torch.model import library
+
+    g = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                             f"{fixture}.npz"))
+    model = getattr(library, constructor)(device=device)
+    rng = np.random.default_rng(len(constructor) + B)
+    y = g["ys"][rng.integers(0, len(g["ys"]), B)]
+    p = g["p"][None] * np.exp(rng.normal(scale=0.2,
+                                         size=(B, model.n_params)))
+    t = g["t_eval"][rng.integers(0, len(g["t_eval"]), B)]
+    J = model.jacobian(*(torch.as_tensor(x, device=device)
+                         for x in (t, y, p)))
+    c = torch.as_tensor(10.0 ** rng.uniform(-3.0, np.log10(3.0), B),
+                        device=device)
+    eye = torch.eye(model.n_states, dtype=torch.float64, device=device)
+    return eye - c[:, None, None] * J
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 256])
+@pytest.mark.parametrize("constructor", sorted(SMALL_MODELS))
+def test_small_model_newton_matrices(cuda_device, monkeypatch, constructor,
+                                     B):
+    """K1 and K2 against their plain versions on the Newton matrices the
+    small models' paths factor: the f32 inverse within 1e-4, the refined
+    f64 solve within 1e-12 of its plain version and 1e-9 of
+    ``torch.linalg.solve``."""
+    a = _small_newton(constructor, SMALL_MODELS[constructor], B,
+                      cuda_device)
+    a32 = a.to(torch.float32).contiguous()
+    x32 = _gj(monkeypatch, "minor", a32)
+    ref = gpu_lu.gj_inverse_f32_plain(a32)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x32).all())
+    assert float((x32 - ref).abs().max() / ref.abs().max()) <= 1e-4
+    b = torch.as_tensor(np.random.default_rng(B).standard_normal(
+        (B, a.shape[-1])), device=cuda_device)
+    got = gpu_lu.refine_solve(x32, a, b)
+    plain = gpu_lu.refine_solve_plain(x32, a, b)
+    sol = torch.linalg.solve(a, b)
+    torch.cuda.synchronize()
+    assert float((got - plain).abs().max() / plain.abs().max()) <= 1e-12
+    assert float(((got - sol).abs() / sol.abs().clamp_min(1e-30)).max()) \
+        < 1e-9

@@ -53,7 +53,7 @@ def no_cuda(monkeypatch):
 
 
 def _entry_points():
-    from tpusysbio_torch import convert, default_device
+    from tpusysbio_torch import cli, convert, default_device, examples
     from tpusysbio_torch.data import (Experiment, ExperimentBatch,
                                       Measurement)
     from tpusysbio_torch.model import library
@@ -94,6 +94,18 @@ def _entry_points():
         "OdeModel.simulate": lambda: model.simulate(p, (0.0, 1.0), [1.0]),
         "OdeModel.simulate_sensitivities":
             lambda: model.simulate_sensitivities(p, (0.0, 1.0), [1.0]),
+        "library.michaelis_menten": library.michaelis_menten,
+        "library.lotka_volterra": library.lotka_volterra,
+        "library.repressilator": library.repressilator,
+        "library.jak_stat": library.jak_stat,
+        "examples.jakstat_build_project": examples.jakstat_build_project,
+        "examples.mm3_fit": examples.mm3_fit,
+        "cli.main simulate": lambda: cli.main(["simulate"]),
+        "cli.main multistart --config": lambda: cli.main(
+            ["multistart", "--config",
+             str(ROOT / "configs" / "mm3.yaml")]),
+        "cli.main profile": lambda: cli.main(["profile"]),
+        "cli.main fit": lambda: cli.main(["fit", "--example", "mm3"]),
     }
 
 
@@ -104,7 +116,11 @@ def _entry_points():
     "convert.params_from_numpy", "OdeModel.simulate",
     "OdeModel.simulate_sensitivities", "ExperimentBatch.from_experiments",
     "ParameterMap.create", "convert.batch_from_reference",
-    "convert.pmap_from_reference"])
+    "convert.pmap_from_reference", "library.michaelis_menten",
+    "library.lotka_volterra", "library.repressilator", "library.jak_stat",
+    "examples.jakstat_build_project", "examples.mm3_fit",
+    "cli.main simulate", "cli.main multistart --config",
+    "cli.main profile", "cli.main fit"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -117,7 +133,8 @@ def test_port_files_cover_the_fit_subpackages():
                 "project/mapping.py", "project/scale_factors.py",
                 "optim/lm.py", "fit/multistart.py", "fit/sampling.py",
                 "convert.py", "linalg/gpu_lu.py", "linalg/compare_designs.py",
-                "model/library.py"):
+                "model/library.py", "sens/forward.py", "fit/profile.py",
+                "config.py", "cli.py", "examples.py"):
         assert f"tpusysbio_torch/{sub}" in rel
 
 

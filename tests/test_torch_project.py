@@ -329,19 +329,29 @@ def test_unported_features_raise(feature):
 
 
 def test_model_without_closed_form_sensitivities_raises():
-    model = dataclasses.replace(library.mapk_huang_ferrell(device="cpu"),
-                                rhs_sens_dir=None)
+    """Construction no longer raises for a model without the closed-form
+    sensitivity RHS: its columns come from ``sens/forward.py`` (one jvp of
+    the RHS per column) and give the closed form's Jacobian in both
+    ``sens_mode``s."""
+    full = library.mapk_huang_ferrell(device="cpu")
+    bare = dataclasses.replace(full, rhs_sens=None, rhs_sens_dir=None)
     t = np.array([1.0, 2.0])
     batch = ExperimentBatch.from_experiments(
         [Experiment("x", (Measurement(0, t, t, t),))], device="cpu")
     p_true = library.mapk_true_params(device="cpu").numpy()
     pmap = ParameterMap.create(
-        model.param_names, 1, shared=(model.param_names[0],),
-        fixed={n: float(v) for n, v in zip(model.param_names[1:],
+        full.param_names, 1, shared=(full.param_names[0],),
+        fixed={n: float(v) for n, v in zip(full.param_names[1:],
                                            p_true[1:])}, device="cpu")
-    with pytest.raises(NotImplementedError, match="rhs_sens_dir"):
-        Project(model=model, pmap=pmap, batch=batch)
-    Project(model=model, pmap=pmap, batch=batch, sens_mode="params")
+    theta = pmap.pack({full.param_names[0]: p_true[0]})
+    for mode in ("theta", "params"):
+        want = Project(model=full, pmap=pmap, batch=batch, sens_mode=mode)
+        got = Project(model=bare, pmap=pmap, batch=batch, sens_mode=mode)
+        r0, J0 = want.residuals_and_jacobian(theta)
+        r1, J1 = got.residuals_and_jacobian(theta)
+        assert torch.equal(r0, r1), mode
+        assert float((J1 - J0).abs().max()) <= 1e-10 * float(
+            J0.abs().max()), mode
 
 
 def test_batch_with_segments_matches_reference_fields():

@@ -1,4 +1,5 @@
-"""Multi-start fitting (``tpusysbio/fit``'s names, for what is ported)."""
+"""Multi-start fitting and profile likelihood (``tpusysbio/fit``'s names,
+for what is ported)."""
 
 from tpusysbio_torch.fit.multistart import (MultistartResult,
                                             TwoPhaseDriver,
@@ -6,8 +7,13 @@ from tpusysbio_torch.fit.multistart import (MultistartResult,
                                             multistart_fit,
                                             multistart_two_phase,
                                             run_chunked)
+from tpusysbio_torch.fit.profile import (ProfileResult,
+                                         confidence_intervals,
+                                         profile_likelihood)
 from tpusysbio_torch.fit.sampling import latin_hypercube, uniform_starts
 
-__all__ = ["MultistartResult", "TwoPhaseDriver", "latin_hypercube",
+__all__ = ["MultistartResult", "ProfileResult", "TwoPhaseDriver",
+           "confidence_intervals", "latin_hypercube",
            "make_multistart_runner", "multistart_fit",
-           "multistart_two_phase", "run_chunked", "uniform_starts"]
+           "multistart_two_phase", "profile_likelihood", "run_chunked",
+           "uniform_starts"]

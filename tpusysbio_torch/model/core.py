@@ -7,7 +7,9 @@ Every callable takes a leading member dimension:
 - ``observables(y, p) -> (B, n_obs)``;
 - optional closed-form fast paths ``rhs_jac(t, y, p) -> (B, n, n)``,
   ``rhs_sens(t, y, S, p) -> (B, n, m)`` and
-  ``rhs_sens_dir(t, y, S, p, C) -> (B, n, G)``.
+  ``rhs_sens_dir(t, y, S, p, C) -> (B, n, G)``. Without them the stepper
+  takes the Jacobian by forward-mode AD and the sensitivities come from
+  ``sens/forward.py`` (one jvp of ``rhs`` per column).
 
 Only forward integration is ported so far: a decreasing ``t_span`` (the
 reference's time reflection), ``events`` and ``dense_output`` raise
@@ -23,6 +25,8 @@ import torch
 
 from tpusysbio_torch import resolve_device
 from tpusysbio_torch.config import SolverConfig
+from tpusysbio_torch.sens import make_sens_rhs
+from tpusysbio_torch.solvers.common import batched_jacobian
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,14 +97,14 @@ class OdeModel:
         config = config or SolverConfig()
         p, t_eval = self._prepare(p, t_span, t_eval, None, dense_output,
                                   device)
-        if self.rhs_sens is None:
-            raise NotImplementedError(
-                "jvp-derived sensitivities (sens/forward.py) are not ported "
-                "yet; the model needs a closed-form rhs_sens")
+        if self.rhs_sens is not None:
+            def sens_rhs(t, y, S):
+                return self.rhs_sens(t, y, S, p)
+        else:
+            sens_rhs = make_sens_rhs(self.rhs, p)
         fn = solvers.SOLVERS[solver]
         return fn(lambda t, y: self.rhs(t, y, p.to(y.dtype)), t_span,
-                  self.y0(p), t_eval, config=config,
-                  sens_rhs=lambda t, y, S: self.rhs_sens(t, y, S, p),
+                  self.y0(p), t_eval, config=config, sens_rhs=sens_rhs,
                   s0=self.y0_sensitivity(p), jac=self._jac(p))
 
     def y0_sensitivity(self, p: torch.Tensor) -> torch.Tensor:
@@ -109,3 +113,8 @@ class OdeModel:
             return self.y0(pp[None])[0]
 
         return torch.func.vmap(torch.func.jacfwd(one))(p)
+
+    def jacobian(self, t, y, p) -> torch.Tensor:
+        """State Jacobian ``∂f/∂y`` (B, n, n) by forward-mode AD, with
+        ``t`` (B,), ``y`` (B, n) and ``p`` (B, m)."""
+        return batched_jacobian(lambda yy: self.rhs(t, yy, p), y)

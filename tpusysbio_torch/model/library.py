@@ -1,10 +1,22 @@
 """Canonical models, port of ``tpusysbio/model/library.py``.
 
-Ported so far: the Huang–Ferrell MAPK cascade (22 species, 30 mass-action
-rate constants), the model of the MAPK-22 paths, and the generated
-EGFR-scale receptor cascade (99 species and 146 rate constants at the
-default 12 layers; the repository calls it EGFR-97). The other library
-models are still to port (ROADMAP.md).
+1. ``michaelis_menten``  — 3-state enzyme kinetics (config 1);
+2. ``lotka_volterra``    — 2-state predator/prey whose initial conditions
+                           are parameters (dy0/dp is not zero);
+3. ``repressilator``     — 6-state genetic oscillator (config 2);
+4. ``mapk_huang_ferrell``— 22 species, 30 mass-action rate constants,
+                           stiff (config 3);
+5. ``jak_stat``          — 4-state STAT5 model with a time-dependent input
+                           and relative observables (config 4);
+6. ``egfr_like``         — the generated receptor cascade, 99 species and
+                           146 rate constants at 12 layers (config 5; the
+                           repository calls it EGFR-97).
+
+Models 1, 2, 3 and 5 are plain batched callables with no closed-form
+Jacobian or sensitivity RHS: the stepper takes their Jacobian by
+forward-mode AD and their sensitivities come from ``sens/forward.py``. They
+are written for ``torch.func``: states and parameters are split with
+``unbind(-1)``, with no in-place writes and no reads of values on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +30,115 @@ from tpusysbio_torch import resolve_device
 from tpusysbio_torch.model.core import OdeModel
 from tpusysbio_torch.model.massaction import (MassActionNetwork,
                                               NetworkBuilder)
+
+
+def _constant_y0(values):
+    """``y0(p)``: the same initial state for every member, (B, n)."""
+    y_init = np.asarray(values, dtype=np.float64)
+
+    def y0(p):
+        y = torch.as_tensor(y_init, dtype=p.dtype, device=p.device)
+        return y.expand(p.shape[0], len(y_init)).clone()
+
+    return y0
+
+
+def _all_states(y, p):
+    return y
+
+
+# ----------------------------------------------------------------------
+# 1. Michaelis-Menten (3 states: S, C, P; params k1, km1, k2, E0)
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _michaelis_menten_model() -> OdeModel:
+    def rhs(t, y, p):
+        s, c, _ = y.unbind(-1)
+        k1, km1, k2, e0 = p.unbind(-1)
+        bind = k1 * (e0 - c) * s
+        return torch.stack([-bind + km1 * c, bind - (km1 + k2) * c, k2 * c],
+                           dim=-1)
+
+    return OdeModel(
+        name="michaelis_menten", n_states=3, n_params=4, n_obs=3,
+        rhs=rhs, y0=_constant_y0([1.0, 0.0, 0.0]), observables=_all_states,
+        param_names=("k1", "km1", "k2", "E0"), state_names=("S", "C", "P"))
+
+
+def michaelis_menten(device="cuda") -> OdeModel:
+    """3-state enzyme kinetics, all states observed. The model holds no
+    tensor; ``device`` is checked as every entry point checks it."""
+    resolve_device(device)
+    return _michaelis_menten_model()
+
+
+MM_TRUE_PARAMS = np.array([10.0, 1.0, 1.5, 0.5])
+
+
+# ----------------------------------------------------------------------
+# 2. Lotka-Volterra (2 states; params a, b, c, d, x0, z0)
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _lotka_volterra_model() -> OdeModel:
+    def rhs(t, y, p):
+        x, z = y.unbind(-1)
+        a, b, c, d = p[:, :4].unbind(-1)
+        return torch.stack([a * x - b * x * z, -c * z + d * x * z], dim=-1)
+
+    def y0(p):
+        return p[:, 4:6].clone()
+
+    return OdeModel(
+        name="lotka_volterra", n_states=2, n_params=6, n_obs=2,
+        rhs=rhs, y0=y0, observables=_all_states,
+        param_names=("a", "b", "c", "d", "x0", "z0"),
+        state_names=("prey", "predator"))
+
+
+def lotka_volterra(device="cuda") -> OdeModel:
+    """Predator/prey; the initial state is the parameters ``x0``, ``z0``."""
+    resolve_device(device)
+    return _lotka_volterra_model()
+
+
+LV_TRUE_PARAMS = np.array([1.5, 1.0, 3.0, 1.0, 1.0, 1.0])
+
+
+# ----------------------------------------------------------------------
+# 3. Repressilator (6 states; params alpha, alpha0, beta, n)
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _repressilator_model() -> OdeModel:
+    def rhs(t, y, p):
+        m, prot = y[:, :3], y[:, 3:]
+        alpha, alpha0, beta, n = (x[:, None] for x in p.unbind(-1))
+        repressor = torch.roll(prot, 1, dims=-1)  # protein i-1 represses i
+        dm = -m + alpha / (1.0 + repressor ** n) + alpha0
+        dp = -beta * (prot - m)
+        return torch.cat([dm, dp], dim=-1)
+
+    def observables(y, p):
+        return y[:, 3:]  # proteins (e.g. fluorescent reporters)
+
+    return OdeModel(
+        name="repressilator", n_states=6, n_params=4, n_obs=3,
+        rhs=rhs, y0=_constant_y0([0.2, 0.1, 0.3, 0.1, 0.4, 0.5]),
+        observables=observables,
+        param_names=("alpha", "alpha0", "beta", "n"),
+        state_names=("m1", "m2", "m3", "p1", "p2", "p3"))
+
+
+def repressilator(device="cuda") -> OdeModel:
+    """Three-gene ring oscillator; the proteins are observed. The Hill
+    power is the parameter ``n``."""
+    resolve_device(device)
+    return _repressilator_model()
+
+
+REPRESSILATOR_TRUE_PARAMS = np.array([50.0, 1.0, 5.0, 2.0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +211,53 @@ def mapk_true_params(device="cuda") -> torch.Tensor:
     for j, name in enumerate(net.reaction_names):
         p[j] = 1000.0 if name.endswith(".bind") else 150.0
     return torch.as_tensor(p, device=resolve_device(device))
+
+
+# ----------------------------------------------------------------------
+# 5. JAK-STAT (4 states, a driven input, relative observables)
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jak_stat_model() -> OdeModel:
+    def input_u(t, amp, tau):
+        x = t / tau
+        return amp * x * torch.exp(1.0 - x)  # smooth pulse peaking at tau
+
+    def rhs(t, y, p):
+        x1, x2, x3, x4 = y.unbind(-1)
+        k1, k2, k3, k4, amp, tau = p.unbind(-1)
+        r1 = k1 * input_u(t, amp, tau) * x1
+        r2 = k2 * x2 * x2
+        r3 = k3 * x3
+        r4 = k4 * x4
+        return torch.stack([-r1 + 2.0 * r4, r1 - 2.0 * r2, r2 - r3, r3 - r4],
+                           dim=-1)
+
+    def observables(y, p):
+        x1, x2, x3, _ = y.unbind(-1)
+        return torch.stack([
+            x2 + 2.0 * x3,        # total phosphorylated STAT (relative)
+            x1 + x2 + 2.0 * x3,   # total cytoplasmic STAT (relative)
+        ], dim=-1)
+
+    return OdeModel(
+        name="jak_stat", n_states=4, n_params=6, n_obs=2,
+        rhs=rhs, y0=_constant_y0([1.0, 0.0, 0.0, 0.0]),
+        observables=observables,
+        param_names=("k1", "k2", "k3", "k4", "amp", "tau"),
+        state_names=("STAT", "pSTAT", "pSTAT_dimer", "nSTAT"))
+
+
+def jak_stat(device="cuda") -> OdeModel:
+    """STAT5 cycling driven by a pulse input ``u(t)`` (EpoR activity) of
+    amplitude ``amp`` peaking at ``tau``; the RHS reads ``t``, (B,), of the
+    dtype the stepper evaluates in. The observables are relative, so a fit
+    needs scale factors."""
+    resolve_device(device)
+    return _jak_stat_model()
+
+
+JAKSTAT_TRUE_PARAMS = np.array([2.5, 4.0, 0.3, 0.6, 1.0, 6.0])
 
 
 # ----------------------------------------------------------------------

@@ -20,11 +20,12 @@ The reference gets N from ``jax.vmap`` over its single-θ functions; here
 every method takes θ as (N, G), or (G,) for one vector (the leading
 dimension is then dropped from the results).
 
+A model without the closed-form ``rhs_sens``/``rhs_sens_dir`` that the
+chosen ``sens_mode`` needs takes its columns from ``sens/forward.py``.
+
 Not ported yet (``NotImplementedError`` at construction): ``priors``,
 ``experiment_mesh``, batches with timed inputs (segments),
-pre-equilibration, initial-value overrides or steady-state rows, and
-models without the closed-form ``rhs_sens``/``rhs_sens_dir`` that the
-chosen ``sens_mode`` needs.
+pre-equilibration, initial-value overrides and steady-state rows.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from tpusysbio_torch.project.scale_factors import (
     scale_factors as _scale_factors,
     scale_factors_and_grad as _scale_factors_and_grad,
 )
+from tpusysbio_torch.sens import make_sens_rhs, make_sens_rhs_dir
 
 
 class ProjectEval(NamedTuple):
@@ -96,12 +98,6 @@ class Project:
                 "Project: not ported yet: " + ", ".join(unported))
         if self.sens_mode not in ("auto", "theta", "params"):
             raise ValueError(f"unknown sens_mode {self.sens_mode!r}")
-        need = "rhs_sens_dir" if self._theta_sens else "rhs_sens"
-        if getattr(self.model, need) is None:
-            raise NotImplementedError(
-                f"Project: the model has no closed-form {need}; "
-                "jvp-derived sensitivities (sens/forward.py) are not "
-                "ported yet")
         if self.pmap.map_idx.device != b.t_eval.device:
             raise ValueError("pmap and batch must lie on one device")
 
@@ -140,14 +136,18 @@ class Project:
             dy0 = model.y0_sensitivity(p)            # (B, n, P)
             if C is not None:
                 s0 = dy0 @ C
-
-                def sens_rhs(t, y, S):
-                    return model.rhs_sens_dir(t, y, S, p, C)
+                if model.rhs_sens_dir is not None:
+                    def sens_rhs(t, y, S):
+                        return model.rhs_sens_dir(t, y, S, p, C)
+                else:
+                    sens_rhs = make_sens_rhs_dir(model.rhs, p, C)
             else:
                 s0 = dy0
-
-                def sens_rhs(t, y, S):
-                    return model.rhs_sens(t, y, S, p)
+                if model.rhs_sens is not None:
+                    def sens_rhs(t, y, S):
+                        return model.rhs_sens(t, y, S, p)
+                else:
+                    sens_rhs = make_sens_rhs(model.rhs, p)
 
             res = solve(f, (t0, t_end), y0, t_eval, config=self.config,
                         sens_rhs=sens_rhs, s0=s0, jac=jac)

@@ -207,13 +207,7 @@ def bdf_solve(
 
     if jac is None:
         def jac(t, y):
-            # forward-mode Jacobian of the batched RHS: one jvp per basis
-            # direction, vmapped over the n directions
-            basis = torch.eye(n, **kw)[:, None, :].expand(n, B, n)
-            cols = torch.func.vmap(
-                lambda v: torch.func.jvp(lambda yy: f(t, yy), (y,),
-                                         (v,))[1])(basis)
-            return cols.permute(1, 2, 0)
+            return common.batched_jacobian(lambda yy: f(t, yy), y)
 
     factor_fn, solve_fn = make_linear_solver(config.linear_solver,
                                              config.jac_bandwidth)

@@ -26,6 +26,20 @@ def rms_norm(x: torch.Tensor) -> torch.Tensor:
                                  dim=1))
 
 
+def batched_jacobian(fn, y: torch.Tensor) -> torch.Tensor:
+    """Per-member Jacobian ``∂fn(y)/∂y`` (B, n_out, n) of a batched
+    ``fn: (B, n) -> (B, n_out)`` by forward-mode AD: one jvp per basis
+    direction, vmapped over the n directions. The directions take the
+    dtype of ``y``; the result takes that of ``fn``'s output (f64 when the
+    RHS mixes an f64 time into an f32 state, as the reference's
+    ``jax.jacfwd`` does)."""
+    B, n = y.shape
+    basis = torch.eye(n, dtype=y.dtype, device=y.device)[:, None, :]
+    cols = torch.func.vmap(
+        lambda v: torch.func.jvp(fn, (y,), (v,))[1])(basis.expand(n, B, n))
+    return cols.permute(1, 2, 0)
+
+
 class IntegrateResult(NamedTuple):
     """Dense output at ``t_eval`` plus per-member diagnostics.
 
