@@ -63,7 +63,8 @@ first failed check:
    members re-run on the CPU must agree, and the golden EGFR trajectory
    must hold on the card;
 10. the EGFR-scale fit (``[egfr-fit]``): 64 Latin-hypercube starts through
-   ``make_multistart_runner(iter_chunk=2)``, 2 lockstep LM iterations; at
+   ``make_multistart_runner(iter_chunk=2)``, ``EGFR_FIT_ITERS`` (1)
+   lockstep LM iterations; at
    least 56 costs finite and the best no worse than at the true
    parameters;
 11. one EGFR evaluation of 16 members under the ``major`` layout
@@ -77,23 +78,40 @@ first failed check:
    against their plain versions and timed beside ``torch.linalg`` at
    n = 2, 3, 4, 6 and B = 64, 256 on those models' Newton matrices;
 13. the CLI in process (``tpusysbio_torch.cli.main``): ``[cli-mm3]``,
-   ``[cli-repressilator]``, ``[cli-jakstat]`` run ``multistart --config
-   configs/<name>.yaml`` at the run file's width (64/8, 64/8, 256/16
-   starts/top_k) and the LM depth ``CLI_DEPTH``: best cost at most the
-   cost at the true parameters, that cost equal to the JAX package's,
-   K1 and K2 launched, and the two best polish starts polished again on
-   the CPU to the same cost; ``[jakstat-ensemble]`` runs ``fit --example
-   jakstat --max-iter ENSEMBLE_ITERS`` twice (two doses, shared k1-k4,
-   local amp, two scale groups): best cost at most the cost at truth, and
-   whether the runs are bitwise equal; ``[profile-mm3]`` runs ``profile
-   --model mm3 --n-points 3 --span 0.5 --fit-iters PROFILE_FIT_ITERS``:
-   every row's minimum at its center, the intervals the JAX CLI's. Each
-   keeps its width and runs at the smallest LM depth at which these gates
-   hold (see the constants); the ensemble's converged best fit (status >
-   0) needs its own depth, ``phase_jakstat_ensemble(card, None)``, as the
-   multistart paths' own depth is ``phase_cli(name, card, tmpdir, None)``
-   and the profile's ``phase_profile_mm3(card, None)``: about an hour
-   together on the card, in calls of their own.
+   ``[cli-repressilator]``, ``[cli-jakstat]``, ``[cli-mapk22]`` and
+   ``[cli-egfr]`` run ``multistart --config configs/<name>.yaml`` at the
+   run file's width (64/8, 64/8, 256/16, 1024/64, 64/8 starts/top_k) and
+   the LM depth ``CLI_DEPTH``: best cost at most the cost at the true
+   parameters, that cost equal to the JAX package's, K1 launched (at n=64
+   and n=35 for EGFR's block-Schur inverse) and K2 with it (not at n=99),
+   and the two best polish starts polished again on the CPU to the same
+   cost; ``[jakstat-ensemble]`` runs ``fit --example jakstat --max-iter
+   ENSEMBLE_ITERS`` twice (two doses, shared k1-k4, local amp, two scale
+   groups): best cost at most the cost at truth, and the two runs bitwise
+   equal; ``[profile-mm3]`` runs ``profile --model mm3 --n-points 3 --span
+   0.5 --fit-iters PROFILE_FIT_ITERS``: every row's minimum at its center,
+   the intervals the JAX CLI's. Each keeps its width and runs at the
+   smallest LM depth at which these gates hold (see the constants); the
+   ensemble's converged best fit (status > 0) needs its own depth,
+   ``phase_jakstat_ensemble(card, None)``, as the multistart paths' own
+   depth is ``phase_cli(name, card, tmpdir, None)`` and the profile's
+   ``phase_profile_mm3(card, None)``: calls of their own;
+14. timed inputs and pre-equilibration through ``Project``: ``[pulse]``,
+   the stimulus-and-washout example (``examples.jakstat_pulse_*``: amp
+   clamped to 1 at t=5 and to 0 at t=25, three segments), one evaluation
+   with Jacobian at 256 Latin-hypercube θ under ``linear_solver='pallas'``
+   (K1 and K2 launched, 2 members re-run on the CPU), then its LM fit from
+   θ_true + 0.7 at ``PULSE_FIT_ITERS`` iterations against the JAX
+   example's fit at that depth (``phase_pulse(card, None)``: the example's
+   80, in a call of its own); ``[preeq]``, the two-experiment dose step of
+   tests/test_events.py (one experiment pre-equilibrated by the
+   steady-state solve, one not): the residuals at the true parameters
+   against the exact solution, 64 θ with Jacobian (all statuses 1, K1 and
+   K2 launched, 2 members re-run on the CPU).
+
+``phase_egfr_10k(card, n_starts=10000)``, not called by ``main()``, is
+config 5 at its literal scale (``bench/experiments/egfr_10k.py``) through
+``TwoPhaseDriver``, in a call of its own.
 
 The launch counters are set to 0 just before each path and read just
 after. The lines before the last are a ``{"kernels": [...]}``
@@ -143,8 +161,8 @@ N_T = 41
 FIT_STARTS = 256
 FIT_TOP_K = 16
 FIT_SCREEN_ITERS = 8
-FIT_POLISH_ITERS = 4   # cut from the headline's 20 to leave the CLI paths
-#                        room in the limit (best polished cost 10.18 here,
+FIT_POLISH_ITERS = 2   # cut from the headline's 20 to leave the CLI paths
+#                        room in the limit (best polished cost 10.18 at 4,
 #                        10.13 at 20; 10.82 at the true parameters)
 FIT_ITER_CHUNK = 4
 MINPACK_ANCHOR_COST = 10.133   # scipy.optimize.leastsq on this problem
@@ -152,7 +170,8 @@ MINPACK_ANCHOR_COST = 10.133   # scipy.optimize.leastsq on this problem
 # the EGFR-scale path (bench/egfr_bench.py): 99 species, 11 free constants
 EGFR_BATCH = 64
 EGFR_MAJOR_BATCH = 16
-EGFR_FIT_ITERS = 2     # cut from 10 to leave the CLI paths room in the limit
+EGFR_FIT_ITERS = 1     # cut from 10 to leave the CLI paths room in the limit
+#                        (best 47.315 <= 49.468 at truth on the CPU at 1)
 EGFR_ITER_CHUNK = 2
 EGFR_FREE_PREFIXES = ("L+Rec", "LR+A0_0", "LR+A0_1", "P0+A0_1")
 
@@ -1226,7 +1245,8 @@ def phase_egfr_sens(card):
 
 def phase_egfr_fit(card, problem):
     """64 Latin-hypercube starts of the EGFR-scale fit through
-    ``make_multistart_runner`` in chunks of 2 LM iterations."""
+    ``make_multistart_runner`` (chunks of 2 LM iterations), at
+    ``EGFR_FIT_ITERS`` iterations."""
     import torch
 
     from tpusysbio_torch import FitConfig
@@ -1336,12 +1356,32 @@ SMALL_BATCHES = (64, 256)
 # tests/test_sens.py's config (rtol=1e-8, atol=1e-11), on the CPU
 GOLDEN_SMALL_NSTEPS = {"mm3": 385, "lotka": 1184, "repressilator": 586,
                        "jakstat": 444}
-CLI_CONFIGS = ("mm3", "repressilator", "jakstat")
+CLI_CONFIGS = ("mm3", "repressilator", "jakstat", "mapk22", "egfr")
+# name -> (library constructor, the sizes at which the Gauss-Jordan kernel
+# sees its Newton matrices, whether the fused refined solve serves it):
+# EGFR's n=99 is inverted by block-Schur (64 and 35) with the plain
+# refinement rounds
+CLI_MODELS = {"mm3": ("michaelis_menten", {3}, True),
+              "repressilator": ("repressilator", {6}, True),
+              "jakstat": ("jak_stat", {4}, True),
+              "mapk22": ("mapk_huang_ferrell", {22}, True),
+              "egfr": ("egfr_like", {64, 35}, False)}
+# The CPU re-polish of the two best starts agrees with the card's to 1e-6,
+# except on MAPK-22: its run file's f32 sensitivity columns differ between
+# the card and the CPU in the last f32 bits, its polish stops at the
+# iteration cap (status 0) and its normal matrix is ill-conditioned (1σ up
+# to 6e4 in log space), so the two LM paths part by ~1e-4 in cost (card
+# runs at (1, 2), (1, 6), (1, 10) and the run file's depth: 8.4e-5,
+# 1.5e-7, 3.4e-5, 8.8e-5). [fit] bounds the same polish at 1e-4; the
+# evaluation at the card's polished θ holds the residuals to 1e-7.
+CLI_REPOLISH_BOUND = {"mapk22": 1e-3}
 # the JAX package on the CPU: tpusysbio.cli._synth_problem at each run
 # file's run settings, then Project.cost(theta_true) with its solver section
 JAX_COST_AT_TRUTH = {"mm3": 10.819715803190192,
                      "repressilator": 31.82119529969282,
-                     "jakstat": 10.574573602722582}
+                     "jakstat": 10.574573602722582,
+                     "mapk22": 10.819742406027979,
+                     "egfr": 55.108902637808086}
 # the JAX package's `tpusysbio profile --model mm3 --n-points 3 --span 0.5`
 # on the CPU: log-space intervals of k1, km1, k2, E0
 JAX_PROFILE_MM3_CI = ((-np.inf, np.inf), (-np.inf, np.inf),
@@ -1357,6 +1397,12 @@ def small_model(name, device):
     from tpusysbio_torch.model import library
 
     return getattr(library, SMALL_MODELS[name][0])(device=device)
+
+
+def cli_model(name, device):
+    from tpusysbio_torch.model import library
+
+    return getattr(library, CLI_MODELS[name][0])(device=device)
 
 
 def phase_golden_small(card):
@@ -1539,7 +1585,8 @@ def phase_cli(name, card, tmpdir, depth):
     wall = time.perf_counter() - t0
     launches = dict(gpu_lu.LAUNCHES)
     by_n = gj_shape_counts("gj_inverse_f32")
-    rec, n = out["record"], SMALL_MODELS[name][1]
+    rec = out["record"]
+    _, sizes, with_k2 = CLI_MODELS[name]
     best, truth = rec["best_cost"], out["cost_at_truth"]
     truth_rel = abs(truth - JAX_COST_AT_TRUTH[name]) / JAX_COST_AT_TRUTH[name]
     polish = out["polish"]
@@ -1555,14 +1602,33 @@ def phase_cli(name, card, tmpdir, depth):
     check(np.isfinite(best) and best <= truth * (1 + 1e-6),
           f"cli-{name}: best cost {best} > cost at truth {truth}")
     check(truth_rel <= 1e-6, f"cli-{name}: cost at truth rel {truth_rel}")
-    check(launches["gj_inverse_f32"] > 0 and launches["refine_solve"] > 0,
-          f"cli-{name}: K1 and K2 must both launch: {launches}")
-    check(launches["gj_inverse_major_f32"] == 0 and set(by_n) == {n},
+    check(launches["gj_inverse_f32"] > 0
+          and (launches["refine_solve"] > 0) == with_k2,
+          f"cli-{name}: K1{' and K2' if with_k2 else ''} must launch"
+          f"{'' if with_k2 else ', K2 not (n > 64)'}: {launches}")
+    check(launches["gj_inverse_major_f32"] == 0 and set(by_n) == sizes,
           f"cli-{name}: launches {launches}, by n {by_n}")
 
-    # the two best polished members' starts polished again on the CPU
+    # the tight project at the two best polished θ on the CPU: the same
+    # inputs give the same residuals (the f64 state column) and Jacobian
+    # (f64 columns; f32 ones, whose error no step control bounds, to 1e-3)
     ranked = polish.ranked()
-    cpu = project_on_cpu(out["project"], small_model(name, "cpu"))
+    proj = out["project"]
+    cpu = project_on_cpu(proj, cli_model(name, "cpu"))
+    ev_dev = proj.evaluate(ranked.theta[:2], with_jac=True)
+    ev_cpu = cpu.evaluate(ranked.theta[:2].cpu(), with_jac=True)
+    r_rel = rel_err(ev_dev.residuals.cpu().numpy(), ev_cpu.residuals.numpy())
+    j_rel = rel_err(ev_dev.jacobian.cpu().numpy(), ev_cpu.jacobian.numpy())
+    j_bound = 1e-3 if proj.config.sens_precision == "f32" else 1e-4
+    print(f"[cli-{name}] the two best polished theta evaluated again on the "
+          f"CPU: residuals rel {r_rel:.3e} (bound 1e-7), Jacobian rel "
+          f"{j_rel:.3e} (bound {j_bound:g})", flush=True)
+    check(bool(torch.equal(ev_dev.status.cpu(), ev_cpu.status))
+          and r_rel <= 1e-7 and j_rel <= j_bound,
+          f"cli-{name}: CPU evaluation residuals {r_rel:.3e}, Jacobian "
+          f"{j_rel:.3e}")
+
+    # the two best polished members' starts polished again on the CPU
     rerun = make_multistart_runner(
         cpu.residuals, cpu.residuals_and_jacobian, out["polish_config"],
         iter_chunk=load_config(path).run.get("iter_chunk"))(
@@ -1570,10 +1636,12 @@ def phase_cli(name, card, tmpdir, depth):
     cpu_cost = rerun.cost.numpy()
     card_cost = ranked.cost[:2].cpu().numpy()
     rel = float(np.max(np.abs(cpu_cost - card_cost) / card_cost))
+    bound = CLI_REPOLISH_BOUND.get(name, 1e-6)
     print(f"[cli-{name}] the two best polish starts polished again on the "
           f"CPU: costs {cpu_cost.tolist()} against the card's "
-          f"{card_cost.tolist()}, rel {rel:.3e} (bound 1e-6)", flush=True)
-    check(rel <= 1e-6, f"cli-{name}: CPU re-polish rel {rel:.3e}")
+          f"{card_cost.tolist()}, rel {rel:.3e} (bound {bound:g})",
+          flush=True)
+    check(rel <= bound, f"cli-{name}: CPU re-polish rel {rel:.3e}")
     return launches
 
 
@@ -1614,6 +1682,8 @@ def phase_jakstat_ensemble(card, max_iter):
           f"jakstat-ensemble: cost {a['cost']} > {a['cost_at_truth']}")
     check(abs(a["cost_at_truth"] - JAX_JAKSTAT_TRUTH) <= 1e-6
           * JAX_JAKSTAT_TRUTH, "jakstat-ensemble: cost at truth")
+    check(all(same.values()),
+          f"jakstat-ensemble: the two runs differ in {same}")
     return same
 
 
@@ -1659,6 +1729,299 @@ def phase_profile_mm3(card, fit_iters):
     check(same_inf and float(diff[2].max()) <= 1e-3,
           f"profile-mm3: CIs {ci.tolist()} against {ref.tolist()}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# Timed inputs and pre-equilibration: the segment loop and the steady-state
+# solve of Project (solvers/steady_state.py)
+# --------------------------------------------------------------------------
+
+PULSE_BATCH = 256
+PULSE_FIT_ITERS = 1         # the example's 80 (the JAX fit stops at 13,
+#                             ~2 evaluations of ~635 steps an iteration);
+#                             the first trial step is rejected, as in the
+#                             JAX fit (the iterate leaves the start at 5)
+PREEQ_BATCH = 64
+# the JAX package's examples/jakstat_pulse.py on the CPU: its lm_fit from
+# theta_true + 0.7 (log space), at PULSE_FIT_ITERS and at the example's 80
+# iterations: (status, cost, theta); and its cost at the true parameters
+JAX_PULSE_TRUTH = 5.623395617218944
+JAX_PULSE_FIT = {
+    None: (2, 4.593483371780147,
+           (0.9325519867911326, 1.4453279347345191, -1.2115476031304082,
+            -0.4821132308360633)),
+    PULSE_FIT_ITERS: (0, 1685.5560729623653,
+                      (1.616290731874155, 2.0862943611198905,
+                       -0.5039728043259362, 0.18917437623400923))}
+
+
+def rel_err(got, ref):
+    return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+
+
+def phase_pulse(card, max_iter):
+    """The stimulus-and-washout example (``examples.jakstat_pulse_*``):
+    its LM fit from θ_true + 0.7 at ``max_iter`` iterations (None: the
+    example's 80) against the JAX example's fit at that depth; then one
+    ``evaluate(with_jac=True)`` of its project at PULSE_BATCH
+    Latin-hypercube θ under ``linear_solver='pallas'`` with
+    ``sens_precision='f32'`` (three segments; K1 on every factorization,
+    K2 on every solve of the f64 state column), 2 members re-run on the
+    CPU."""
+    import dataclasses
+
+    import torch
+
+    from tpusysbio_torch import examples
+    from tpusysbio_torch.fit import latin_hypercube
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+
+    t0 = time.perf_counter()
+    out = examples.jakstat_pulse_fit(device="cuda", max_iter=max_iter)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    j_status, j_cost, j_theta = JAX_PULSE_FIT[max_iter]
+    cost_rel = abs(out["cost"] - j_cost) / j_cost
+    th_err = float(np.max(np.abs(out["theta"] - np.asarray(j_theta))))
+    truth_rel = abs(out["cost_at_truth"] - JAX_PULSE_TRUTH) / JAX_PULSE_TRUTH
+    print(f"[pulse] {card}: fit from theta_true + 0.7, LM iterations "
+          f"{max_iter or 'of the example (80)'}: status {out['status']} "
+          f"after {out['n_iter']} iterations, cost {out['cost']:.9f} (the "
+          f"JAX example: {j_cost:.9f}, rel {cost_rel:.2e}), theta max abs "
+          f"diff {th_err:.2e}; cost at truth {out['cost_at_truth']:.9f} "
+          f"(JAX {JAX_PULSE_TRUTH:.9f}, rel {truth_rel:.2e}); wall "
+          f"{fit_wall:.2f} s (with the data's simulation)", flush=True)
+    check(truth_rel <= 1e-6, f"pulse: cost at truth rel {truth_rel:.2e}")
+    check(out["status"] == j_status, f"pulse: fit status {out['status']}")
+    check(cost_rel <= 1e-6 and th_err <= 1e-6,
+          f"pulse: fit cost rel {cost_rel:.2e}, theta {th_err:.2e}")
+    if max_iter is None:
+        check(out["status"] > 0 and out["cost"] <= out["cost_at_truth"],
+              f"pulse: status {out['status']}, cost {out['cost']} > "
+              f"{out['cost_at_truth']}")
+
+    proj = out["project"]
+    pallas = dataclasses.replace(proj, config=dataclasses.replace(
+        proj.config, linear_solver="pallas", sens_precision="f32"))
+    theta_true = torch.as_tensor(out["theta_true"], device="cuda")
+    thetas = latin_hypercube(torch.Generator().manual_seed(0), PULSE_BATCH,
+                             theta_true - 0.5, theta_true + 0.5)
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    ev = pallas.evaluate(thetas, with_jac=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    status = ev.status.cpu().numpy()
+    nsteps = ev.nsteps.cpu().numpy()
+    print(f"[pulse] N={PULSE_BATCH} evaluations with Jacobian (3 segments, "
+          f"pallas, f32 sensitivities): {wall:.2f} s, "
+          f"{int((status == 1).sum())}/{PULSE_BATCH} status 1, mean steps "
+          f"{nsteps.mean():.2f}; launches {launches}, K1 by n "
+          f"{gj_shape_counts('gj_inverse_f32')}", flush=True)
+    check(bool((status == 1).all()), "pulse: not every member finished")
+    check(bool(torch.isfinite(ev.residuals).all()
+               and torch.isfinite(ev.jacobian).all()),
+          "pulse: non-finite residuals or Jacobian")
+    check(launches["gj_inverse_f32"] > 0 and launches["refine_solve"] > 0
+          and launches["gj_inverse_major_f32"] == 0,
+          f"pulse: K1 and K2 must launch: {launches}")
+
+    cpu = project_on_cpu(pallas, library.jak_stat(device="cpu"))
+    ref = cpu.evaluate(thetas[:2].cpu(), with_jac=True)
+    r_rel = rel_err(ev.residuals[:2].cpu().numpy(), ref.residuals.numpy())
+    j_rel = rel_err(ev.jacobian[:2].cpu().numpy(), ref.jacobian.numpy())
+    print(f"[pulse] CPU cross-check of 2 members: residuals rel "
+          f"{r_rel:.3e} (bound 1e-7), Jacobian rel {j_rel:.3e} (bound "
+          f"1e-4), steps {nsteps[:2].ravel().tolist()} against "
+          f"{ref.nsteps.numpy().ravel().tolist()}", flush=True)
+    check(bool(torch.equal(ev.status[:2].cpu(), ref.status)),
+          "pulse CPU cross-check: status")
+    check(r_rel <= 1e-7 and j_rel <= 1e-4,
+          f"pulse CPU cross-check: residuals {r_rel:.3e}, Jacobian "
+          f"{j_rel:.3e}")
+    return launches
+
+
+def inflow_model(device):
+    """Two-state inflow chain ``y1' = v - d1 y1``, ``y2' = k y1 - d2 y2``
+    with the unique steady state (v/d1, k v/(d1 d2)): tests/test_events.py's
+    pre-equilibration model."""
+    import torch
+
+    from tpusysbio_torch.model.core import OdeModel
+
+    def rhs(t, y, p):
+        return torch.stack([p[:, 0] - p[:, 1] * y[:, 0],
+                            p[:, 2] * y[:, 0] - p[:, 3] * y[:, 1]], dim=-1)
+
+    names = ("v", "d1", "k", "d2")
+    return OdeModel(name="inflow2", n_states=2, n_params=4, n_obs=2,
+                    rhs=rhs, y0=lambda p: 0.0 * p[:, :2] + 0.2,
+                    observables=lambda y, p: y, param_names=names,
+                    state_names=("y1", "y2"))
+
+
+def inflow_exact(p, y0, t):
+    """The inflow chain's closed-form solution at times ``t`` (d1 != d2)."""
+    v, d1, k, d2 = p
+    a1 = v / d1
+    c = y0[0] - a1
+    a2 = k * a1 / d2
+    A = k * c / (d2 - d1)
+    y1 = a1 + c * np.exp(-d1 * t)
+    y2 = a2 + A * np.exp(-d1 * t) + (y0[1] - a2 - A) * np.exp(-d2 * t)
+    return np.stack([y1, y2], 1)
+
+
+def phase_preeq(card):
+    """The two-experiment dose step of tests/test_events.py (one experiment
+    pre-equilibrated under a basal inflow v=0.5, one started from y0),
+    residuals against the exact solution with sigma 1; steady-state
+    pre-integration and trajectories under ``linear_solver='pallas'``.
+    At rtol=1e-9 the residuals at the true parameters are the integration
+    error; at rtol=1e-6, PREEQ_BATCH θ with Jacobian (the steady-state
+    solve accepts r < 1e-9 on a residual scaled by atol + rtol |y|, which
+    at rtol=1e-9 lies below the rounding floor of f(y*): there the flag is
+    rounding's, in the reference too)."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.data import (Experiment, ExperimentBatch,
+                                      Measurement)
+    from tpusysbio_torch.fit import latin_hypercube
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.project import ParameterMap, Project
+
+    p_true = np.array([2.0, 0.5, 1.0, 0.25])
+    t = np.linspace(0.5, 8.0, 7)
+    exact = {"dose": inflow_exact(p_true, [1.0, 4.0], t),
+             "naive": inflow_exact(p_true, [0.2, 0.2], t)}
+
+    def meas(data):
+        return tuple(Measurement(obs_index=i, times=t, values=data[:, i],
+                                 sigmas=np.ones(len(t))) for i in range(2))
+
+    model = inflow_model("cuda")
+    exps = [Experiment("dose", meas(exact["dose"]), preequilibrate=True,
+                       preeq_params={"v": 0.5}),
+            Experiment("naive", meas(exact["naive"]))]
+    batch = ExperimentBatch.from_experiments(
+        exps, param_names=model.param_names, device="cuda")
+    pmap = ParameterMap.create(model.param_names, 2,
+                               shared=model.param_names, device="cuda")
+    theta_true = pmap.pack(dict(zip(model.param_names, p_true)))
+
+    def project(rtol, atol):
+        return Project(model=model, pmap=pmap, batch=batch, ss_t_relax=20.0,
+                       config=SolverConfig(rtol=rtol, atol=atol,
+                                           linear_solver="pallas"))
+
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    tight = project(1e-9, 1e-12).evaluate(theta_true[None])
+    thetas = latin_hypercube(torch.Generator().manual_seed(0), PREEQ_BATCH,
+                             theta_true - 0.5, theta_true + 0.5)
+    thetas[0] = theta_true
+    proj = project(1e-6, 1e-9)
+    ev = proj.evaluate(thetas, with_jac=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    r_truth = float(tight.residuals.abs().max())
+    status = ev.status.cpu().numpy()
+    print(f"[preeq] {card}: at rtol=1e-9 max |residual| at the true "
+          f"parameters {r_truth:.3e} (bound 1e-6; statuses "
+          f"{tight.status.cpu().numpy().ravel().tolist()}); N={PREEQ_BATCH} "
+          f"evaluations with Jacobian at rtol=1e-6: statuses (dose, naive) "
+          f"all 1: {bool((status == 1).all())}, mean steps "
+          f"{ev.nsteps.float().mean(0).cpu().numpy().round(2).tolist()}; "
+          f"{wall:.2f} s; launches {launches}", flush=True)
+    check(r_truth < 1e-6, f"preeq: residual at truth {r_truth:.3e}")
+    check(bool((status == 1).all()),
+          f"preeq: statuses {np.unique(status, return_counts=True)}")
+    check(bool(torch.isfinite(ev.jacobian).all()), "preeq: non-finite J")
+    check(launches["gj_inverse_f32"] > 0 and launches["refine_solve"] > 0
+          and launches["gj_inverse_major_f32"] == 0,
+          f"preeq: K1 and K2 must launch: {launches}")
+
+    cpu = project_on_cpu(proj, inflow_model("cpu"))
+    ref = cpu.evaluate(thetas[:2].cpu(), with_jac=True)
+    r_rel = rel_err(ev.residuals[:2].cpu().numpy(), ref.residuals.numpy())
+    j_rel = rel_err(ev.jacobian[:2].cpu().numpy(), ref.jacobian.numpy())
+    print(f"[preeq] CPU cross-check of 2 members: residuals rel {r_rel:.3e}"
+          f" (bound 1e-7), Jacobian rel {j_rel:.3e} (bound 1e-4)",
+          flush=True)
+    check(bool(torch.equal(ev.status[:2].cpu(), ref.status)),
+          "preeq CPU cross-check: status")
+    check(r_rel <= 1e-7 and j_rel <= 1e-4,
+          f"preeq CPU cross-check: residuals {r_rel:.3e}, Jacobian "
+          f"{j_rel:.3e}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# EGFR-10k: config 5 at its literal scale (bench/experiments/egfr_10k.py)
+# --------------------------------------------------------------------------
+
+EGFR10K_CHUNK = 512
+EGFR10K_TOP_K = 64
+
+
+def phase_egfr_10k(card, n_starts=10000):
+    """The ``bench/egfr_bench.py`` problem, ``n_starts`` Latin-hypercube
+    starts in θ_true ± 0.5 screened in chunks of 512 by 5 LM iterations on
+    the f32 stepper (rtol=1e-3, step cap 136, rank channels), the best 64
+    polished by 10 at rtol=1e-6, through ``TwoPhaseDriver`` after its
+    warm-up. Not called by ``main()``: a call of its own."""
+    import dataclasses
+
+    import torch
+
+    from tpusysbio_torch import FitConfig, SolverConfig
+    from tpusysbio_torch.fit import TwoPhaseDriver, latin_hypercube
+    from tpusysbio_torch.linalg import gpu_lu
+
+    proj_tight, theta_true = build_egfr_problem("cuda")
+    proj_screen = dataclasses.replace(proj_tight, config=SolverConfig(
+        rtol=1e-3, atol=1e-6, max_steps=136, linear_solver="pallas",
+        mixed_precision=True))
+    starts = latin_hypercube(torch.Generator().manual_seed(0), n_starts,
+                             theta_true - 0.5, theta_true + 0.5)
+    chunk = EGFR10K_CHUNK if n_starts > EGFR10K_CHUNK else None
+    driver = TwoPhaseDriver(
+        (proj_screen.residuals, proj_screen.residuals_and_jacobian),
+        (proj_tight.residuals, proj_tight.residuals_and_jacobian),
+        FitConfig(max_iter=5, eval_mode="lockstep", ftol=1e-4, xtol=1e-4),
+        FitConfig(max_iter=10, eval_mode="lockstep"), EGFR10K_TOP_K,
+        polish_iter_chunk=2, chunk_size=chunk, screen_channels="rank",
+        run_tag="egfr10k")
+    warm = driver.warmup(theta_true)
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    polish, screen, info = driver.run(starts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    by_n = gj_shape_counts("gj_inverse_f32")
+    best = float(polish.ranked().cost[0])
+    cost_true = float(proj_tight.cost(theta_true))
+    status = screen.status
+    converged = int((np.asarray(status.cpu() if isinstance(
+        status, torch.Tensor) else status) > 0).sum())
+    print(f"[egfr-10k] {card}: {n_starts} starts (chunks of {chunk}, "
+          f"{info['n_pad']} padded) -> top {EGFR10K_TOP_K}: wall {wall:.2f} "
+          f"s (screen {info['screen_seconds']:.2f} s, polish "
+          f"{info['polish_seconds']:.2f} s; warm-up {warm:.2f} s), "
+          f"{n_starts / wall * 60.0:.1f} starts/min; screened converged "
+          f"{converged}/{n_starts}; best cost {best:.6f}, cost at theta_true"
+          f" {cost_true:.6f}; launches {launches}, K1 by n {by_n}",
+          flush=True)
+    check(best <= cost_true,
+          f"egfr-10k: best cost {best} > cost at theta_true {cost_true}")
+    return {"wall": wall, "launches": launches, "best": best,
+            "cost_at_truth": cost_true, **info}
 
 
 def jakstat_screen():
@@ -1771,6 +2134,8 @@ def main():
     kernels[2]["small_n"] = {}
     l_small = phase_cli_paths(card, CLI_DEPTH, ENSEMBLE_ITERS,
                               PROFILE_FIT_ITERS)
+    l_small["pulse"] = phase_pulse(card, PULSE_FIT_ITERS)
+    l_small["preeq"] = phase_preeq(card)
     if "--profile" in sys.argv[1:]:
         phase_profile(run, "one main-path batch")
         screen, starts = problem[1], problem[3]

@@ -328,3 +328,23 @@ def test_small_model_newton_matrices(cuda_device, monkeypatch, constructor,
     assert float((got - plain).abs().max() / plain.abs().max()) <= 1e-12
     assert float(((got - sol).abs() / sol.abs().clamp_min(1e-30)).max()) \
         < 1e-9
+
+
+@pytest.mark.cuda
+def test_scale_factor_ensemble_is_deterministic(cuda_device):
+    """The JAK-STAT two-dose ensemble (two scale groups) evaluated with its
+    Jacobian at 64 θ twice in one process gives the same bits: the scale
+    factors' segment sums add in a fixed order on the card."""
+    from tpusysbio_torch import examples
+    from tpusysbio_torch.fit import latin_hypercube
+
+    proj, _, theta_true, _ = examples.jakstat_build_project(
+        device=cuda_device)
+    thetas = latin_hypercube(torch.Generator().manual_seed(0), 64,
+                             theta_true - 1.5, theta_true + 1.5)
+    a = proj.evaluate(thetas, with_jac=True)
+    b = proj.evaluate(thetas, with_jac=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a.residuals).all())
+    for field in ("residuals", "jacobian", "scale", "cost"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field

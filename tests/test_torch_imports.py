@@ -57,7 +57,7 @@ def _entry_points():
     from tpusysbio_torch.data import (Experiment, ExperimentBatch,
                                       Measurement)
     from tpusysbio_torch.model import library
-    from tpusysbio_torch.project import ParameterMap
+    from tpusysbio_torch.project import ParameterMap, Priors
 
     model = library.mapk_huang_ferrell(device="cpu")
     p = np.asarray(library.mapk_true_params(device="cpu"))[None]
@@ -82,6 +82,14 @@ def _entry_points():
             lambda: convert.batch_from_reference(fields(batch)),
         "convert.pmap_from_reference":
             lambda: convert.pmap_from_reference(fields(pmap)),
+        "Priors.create": lambda: Priors.create(pmap, batch,
+                                               params={"a": (1.0, 0.5)}),
+        "convert.priors_from_reference":
+            lambda: convert.priors_from_reference(fields(Priors.create(
+                pmap, batch, params={"a": (1.0, 0.5)}, device="cpu"))),
+        "examples.jakstat_pulse_build_project":
+            examples.jakstat_pulse_build_project,
+        "examples.jakstat_pulse_fit": examples.jakstat_pulse_fit,
         "default_device": default_device,
         "library.mapk_huang_ferrell": library.mapk_huang_ferrell,
         "library.mapk_true_params": library.mapk_true_params,
@@ -119,6 +127,8 @@ def _entry_points():
     "convert.pmap_from_reference", "library.michaelis_menten",
     "library.lotka_volterra", "library.repressilator", "library.jak_stat",
     "examples.jakstat_build_project", "examples.mm3_fit",
+    "Priors.create", "convert.priors_from_reference",
+    "examples.jakstat_pulse_build_project", "examples.jakstat_pulse_fit",
     "cli.main simulate", "cli.main multistart --config",
     "cli.main profile", "cli.main fit"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
@@ -134,7 +144,8 @@ def test_port_files_cover_the_fit_subpackages():
                 "optim/lm.py", "fit/multistart.py", "fit/sampling.py",
                 "convert.py", "linalg/gpu_lu.py", "linalg/compare_designs.py",
                 "model/library.py", "sens/forward.py", "fit/profile.py",
-                "config.py", "cli.py", "examples.py"):
+                "config.py", "cli.py", "examples.py",
+                "solvers/steady_state.py", "project/priors.py"):
         assert f"tpusysbio_torch/{sub}" in rel
 
 

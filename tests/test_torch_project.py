@@ -26,8 +26,9 @@ from tpusysbio.model import library as jlibrary
 from tpusysbio_torch import SolverConfig, convert
 from tpusysbio_torch.data import Experiment, ExperimentBatch, Measurement
 from tpusysbio_torch.model import library
-from tpusysbio_torch.project import (ParameterMap, Project, ProjectEval,
-                                     scale_factors, scale_factors_and_grad)
+from tpusysbio_torch.project import (ParameterMap, Priors, Project,
+                                     ProjectEval, scale_factors,
+                                     scale_factors_and_grad)
 
 torch.set_num_threads(1)
 
@@ -304,7 +305,7 @@ def _unported_cases():
                                                 preequilibrate=True)]),
         "y0_overrides": dict(exps=[Experiment("x", (m,),
                                               y0_overrides={"KKK": 1.0})]),
-        "priors": dict(exps=[Experiment("x", (m,))], priors=object()),
+        "priors": dict(exps=[Experiment("x", (m,))], priors={}),
         "experiment_mesh": dict(exps=[Experiment("x", (m,))],
                                 experiment_mesh=object()),
     }
@@ -312,8 +313,12 @@ def _unported_cases():
 
 @pytest.mark.parametrize("feature", sorted(_unported_cases()))
 def test_unported_features_raise(feature):
-    """The batch is constructed as the reference constructs it; the
-    ``Project`` refuses it."""
+    """The batch is constructed as the reference constructs it. Of these
+    features only ``experiment_mesh`` is still refused; the ``Project``
+    takes the others (timed inputs, state assignments, pre-equilibration,
+    initial-value overrides, steady-state rows and priors), and
+    tests/test_torch_events.py and test_torch_priors.py hold them against
+    the reference."""
     case = _unported_cases()[feature]
     model = library.mapk_huang_ferrell(device="cpu")
     batch = ExperimentBatch.from_experiments(
@@ -324,8 +329,16 @@ def test_unported_features_raise(feature):
         model.param_names, 1, shared=(model.param_names[0],),
         fixed={n: float(v) for n, v in zip(model.param_names[1:],
                                            p_true[1:])}, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Project(model=model, pmap=pmap, batch=batch, **case)
+    if "priors" in case:
+        case["priors"] = Priors.create(pmap, batch, params={
+            model.param_names[0]: (1.0, 0.5)}, device="cpu")
+    if feature == "experiment_mesh":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Project(model=model, pmap=pmap, batch=batch, **case)
+        return
+    proj = Project(model=model, pmap=pmap, batch=batch, **case)
+    extra = proj.priors.n_rows if proj.priors is not None else 0
+    assert proj.n_residuals == batch.n_residuals + extra
 
 
 def test_model_without_closed_form_sensitivities_raises():

@@ -3,7 +3,7 @@ form.
 
 Here the "weights" of a model are its rate-constant vector ``p`` and the
 network's integer matrices; the state of a fit problem is the fields of its
-``ExperimentBatch`` and ``ParameterMap``. All arrive as numpy arrays (the
+``ExperimentBatch``, ``ParameterMap`` and ``Priors``. All arrive as numpy arrays (the
 caller does the ``np.asarray`` on the fields of the ``tpusysbio`` objects),
 so this module never imports the JAX package.
 """
@@ -20,6 +20,7 @@ from tpusysbio_torch import resolve_device
 from tpusysbio_torch.data.experiment import ExperimentBatch
 from tpusysbio_torch.model.massaction import MassActionNetwork
 from tpusysbio_torch.project.mapping import ParameterMap
+from tpusysbio_torch.project.priors import Priors
 
 
 def network_from_numpy(species: Sequence[str],
@@ -87,3 +88,12 @@ def pmap_from_reference(arrays: Mapping, device="cuda") -> ParameterMap:
     kw["n_global"] = int(kw["n_global"])
     kw["theta_names"] = tuple(kw.get("theta_names", ()))
     return ParameterMap(**kw)
+
+
+def priors_from_reference(arrays: Mapping, device="cuda") -> Priors:
+    """The port's ``Priors`` from the reference object's fields
+    (``theta_mu``, ``theta_w``, ``scale_mu``, ``scale_w``, ``has_theta``,
+    ``has_scale``)."""
+    kw = _tensor_fields(Priors, arrays, resolve_device(device))
+    return Priors(**{**kw, "has_theta": bool(kw["has_theta"]),
+                     "has_scale": bool(kw["has_scale"])})

@@ -9,10 +9,9 @@ data by one gather.
 
 Every field of the reference is carried, so shapes match it. Timed
 ``inputs``/``input_states`` (segments), ``preequilibrate``, ``y0_overrides``
-and steady-state rows are CONSTRUCTED as the reference constructs them;
-``Project`` raises ``NotImplementedError`` on a batch that uses them (they
-need the steady-state solver and the segment loop, which are not ported
-yet).
+and steady-state rows are constructed as the reference constructs them,
+and ``Project`` (project/residuals.py) evaluates them: the segment loop,
+pre-equilibration and steady-state rows through ``solvers/steady_state.py``.
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
-"""The canonical fit examples behind ``cli.py fit --example``.
+"""The canonical fit examples behind ``cli.py fit --example``, and the
+timed-input example.
 
 The port's own copies of ``examples/jakstat_ensemble.py`` (config 4: the
 JAK-STAT two-dose ensemble with shared and local parameters and two scale
-groups) and ``examples/mm3_fit.py`` (config 1: one Michaelis-Menten LM
-fit): the same data, problem and fit settings. The starts come from a
-``torch.Generator`` seeded as the reference seeds its JAX key, so they
-differ from the reference's.
+groups), ``examples/mm3_fit.py`` (config 1: one Michaelis-Menten LM fit)
+and ``examples/jakstat_pulse.py`` (a JAK-STAT stimulus pulse and washout
+as two timed parameter clamps): the same data, problem and fit settings.
+The ensemble's starts come from a ``torch.Generator`` seeded as the
+reference seeds its JAX key, so they differ from the reference's.
 """
 
 from __future__ import annotations
@@ -119,3 +121,64 @@ def mm3_fit(device="cuda", max_iter=FitConfig.max_iter) -> dict:
         print(f"  {name:>4s}: fit={v_fit:8.4f}  true={v_true:8.4f}")
     return {"status": int(fit.status[0]), "cost": float(fit.cost[0]),
             "theta": theta}
+
+
+# the pulse: amp -> 1 at t=5 (stimulus on), -> 0 at t=25 (washout)
+JAKSTAT_PULSE = ((5.0, "amp", 1.0), (25.0, "amp", 0.0))
+JAKSTAT_PULSE_TRUE = {"k1": 2.5, "k2": 4.0, "k3": 0.3, "k4": 0.6}
+
+
+def jakstat_pulse_build_project(seed=0, sigma=0.02, device="cuda"):
+    """JAK-STAT whose Epo stimulus is a square pulse of two timed inputs;
+    k1..k4 free, amp (basal 0) and tau fixed. The data are generated
+    through the segment machinery itself at rtol=1e-10, with relative
+    noise ``sigma``. Returns ``(project, pmap, theta_true)``."""
+    model = library.jak_stat(device=device)
+    rng = np.random.default_rng(seed)
+    t = np.linspace(2.0, 60.0, 15)
+    zero = tuple(Measurement(obs_index=i, times=t, values=np.zeros(len(t)),
+                             sigmas=np.ones(len(t))) for i in range(2))
+    batch_gen = ExperimentBatch.from_experiments(
+        [Experiment("pulse", zero, inputs=JAKSTAT_PULSE)],
+        param_names=model.param_names, device=device)
+    pmap = ParameterMap.create(model.param_names, 1,
+                               shared=("k1", "k2", "k3", "k4"),
+                               fixed={"amp": 0.0, "tau": 6.0}, device=device)
+    proj_gen = Project(model=model, pmap=pmap, batch=batch_gen,
+                       config=SolverConfig(rtol=1e-10, atol=1e-12))
+    theta_true = pmap.pack(JAKSTAT_PULSE_TRUE)
+    # residuals against zero data with sigma=1 ARE the simulated values
+    data = proj_gen.residuals(theta_true).cpu().numpy().reshape(2, len(t))
+    meas = tuple(
+        Measurement(obs_index=i, times=t,
+                    values=data[i] * (1 + rng.normal(scale=sigma,
+                                                     size=len(t))),
+                    sigmas=np.maximum(np.abs(data[i]) * sigma, 1e-3))
+        for i in range(2))
+    batch = ExperimentBatch.from_experiments(
+        [Experiment("pulse", meas, inputs=JAKSTAT_PULSE)],
+        param_names=model.param_names, device=device)
+    proj = Project(model=model, pmap=pmap, batch=batch,
+                   config=SolverConfig(rtol=1e-8, atol=1e-11))
+    return proj, pmap, theta_true
+
+
+def jakstat_pulse_fit(device="cuda", max_iter=None) -> dict:
+    """One LM fit of the pulse problem from ``θ_true + 0.7`` (log space),
+    ``max_iter`` iterations at most (the example's 80 by default). Prints
+    and returns the fit."""
+    proj, pmap, theta_true = jakstat_pulse_build_project(device=device)
+    theta0 = theta_true + 0.7
+    fit = lm_fit(proj.residuals, proj.residuals_and_jacobian, theta0[None],
+                 FitConfig(max_iter=80 if max_iter is None else max_iter))
+    cost_truth = float(proj.cost(theta_true))
+    print(f"fit: status={int(fit.status[0])} iters={int(fit.n_iter[0])} "
+          f"cost={float(fit.cost[0]):.3f}")
+    theta = fit.theta[0].cpu().numpy()
+    for name, v_fit, v_true in zip(pmap.theta_names, np.exp(theta),
+                                   np.exp(theta_true.cpu().numpy())):
+        print(f"  {name:>3s} = {v_fit:.4f}  (true {v_true:.4f})")
+    return {"status": int(fit.status[0]), "n_iter": int(fit.n_iter[0]),
+            "cost": float(fit.cost[0]), "cost_at_truth": cost_truth,
+            "theta": theta, "theta_true": theta_true.cpu().numpy(),
+            "theta_names": pmap.theta_names, "project": proj}

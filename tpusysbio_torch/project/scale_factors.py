@@ -14,53 +14,88 @@ All sums are masked segment sums over a static group-id array (group -1 =
 absolute data, B ≡ 1), pooled across the whole experiment batch. ``sim``
 and ``dsim`` carry a leading start dimension N.
 
-The segment sum is ``index_add_`` along the residual axis into a fresh
-zero tensor. On the CPU it adds in index order and is deterministic. On
-the card ``index_add_`` uses atomic adds, whose order changes from run to
-run: in f64 the sums can differ at the level of one unit in the last place.
+The segment sum is deterministic on every device: ``segment_index`` lists
+each group's rows once, padded to the largest group, and a sum gathers
+those rows and reduces along the padded axis (``torch.sum``, whose order is
+fixed by the shapes). No atomic adds are involved, so two evaluations of
+the same inputs give the same bits on the card as on the CPU.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
 
-def _seg(x, group, n_groups):
+class SegmentIndex(NamedTuple):
+    """Rows of each scale group: ``rows`` (Gp, L) indices into the residual
+    axis and ``valid`` (Gp, L), False on padding (which points at row 0)."""
+
+    rows: torch.Tensor
+    valid: torch.Tensor
+
+
+def segment_index(group: torch.Tensor, n_groups: int) -> SegmentIndex:
+    """The padded row lists of ``group`` (R,) for ``n_groups`` groups
+    (at least one row of padding per group; rows of group -1 are in no
+    list). Reads ``group`` on the host once: build it once per batch."""
+    g = group.detach().cpu().numpy().reshape(-1)
+    Gp = max(n_groups, 1)
+    lists = [np.flatnonzero(g == k) for k in range(Gp)]
+    L = max(1, max(len(r) for r in lists))
+    rows = np.zeros((Gp, L), dtype=np.int64)
+    valid = np.zeros((Gp, L), dtype=bool)
+    for k, r in enumerate(lists):
+        rows[k, :len(r)] = r
+        valid[k, :len(r)] = True
+    return SegmentIndex(torch.as_tensor(rows, device=group.device),
+                        torch.as_tensor(valid, device=group.device))
+
+
+def _seg(x, index: SegmentIndex):
     """Sum ``x`` (N, R, ...) over the rows of each group -> (N, Gp, ...)."""
-    out = torch.zeros((x.shape[0], max(n_groups, 1)) + x.shape[2:],
-                      dtype=x.dtype, device=x.device)
-    return out.index_add_(1, group, x)
+    picked = x[:, index.rows]                         # (N, Gp, L, ...)
+    valid = index.valid.reshape(index.valid.shape
+                                + (1,) * (x.ndim - 2))
+    return torch.where(valid, picked, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device)).sum(2)
 
 
 def _weights(inv_var, group, mask):
     zero = torch.zeros((), dtype=inv_var.dtype, device=inv_var.device)
-    w = torch.where(mask & (group >= 0), inv_var, zero)
-    return w, torch.clamp(group, min=0).long()
+    return torch.where(mask & (group >= 0), inv_var, zero)
 
 
-def scale_factors(sim, data, inv_var, group, mask, n_groups):
+def scale_factors(sim, data, inv_var, group, mask, n_groups,
+                  index: Optional[SegmentIndex] = None):
     """Optimal B per group. ``sim`` is (N, R); ``data``, ``inv_var``,
     ``group``, ``mask`` are flat (R,); returns (N, n_groups).
 
     ``group`` entries are in [-1, n_groups); -1/masked entries contribute
-    nothing (clipped index + zero weight).
+    nothing. ``index`` is ``segment_index(group, n_groups)``, built here
+    when not given.
     """
-    w, g = _weights(inv_var, group, mask)
-    num = _seg(w * sim * data, g, n_groups)
-    den = _seg(w * sim * sim, g, n_groups)
+    index = segment_index(group, n_groups) if index is None else index
+    w = _weights(inv_var, group, mask)
+    num = _seg(w * sim * data, index)
+    den = _seg(w * sim * sim, index)
     return num / torch.where(den > 0, den, torch.ones_like(den))
 
 
-def scale_factors_and_grad(sim, dsim, data, inv_var, group, mask, n_groups):
+def scale_factors_and_grad(sim, dsim, data, inv_var, group, mask, n_groups,
+                           index: Optional[SegmentIndex] = None):
     """B (N, n_groups) and dB/dθ (N, n_groups, G) for ``dsim`` of shape
     (N, R, G)."""
-    w, g = _weights(inv_var, group, mask)
-    num = _seg(w * sim * data, g, n_groups)
-    den = _seg(w * sim * sim, g, n_groups)
+    index = segment_index(group, n_groups) if index is None else index
+    w = _weights(inv_var, group, mask)
+    num = _seg(w * sim * data, index)
+    den = _seg(w * sim * sim, index)
     den_safe = torch.where(den > 0, den, torch.ones_like(den))
     B = num / den_safe
 
-    dnum = _seg(w[:, None] * dsim * data[:, None], g, n_groups)
-    dden = 2.0 * _seg(w[:, None] * dsim * sim[..., None], g, n_groups)
+    dnum = _seg(w[:, None] * dsim * data[:, None], index)
+    dden = 2.0 * _seg(w[:, None] * dsim * sim[..., None], index)
     dB = (dnum - B[..., None] * dden) / den_safe[..., None]
     return B, dB
