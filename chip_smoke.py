@@ -109,6 +109,22 @@ first failed check:
    against the exact solution, 64 θ with Jacobian (all statuses 1, K1 and
    K2 launched, 2 members re-run on the CPU).
 
+15. bounded and robust fitting and ensemble MCMC: ``[fit-trf]``,
+   ``multistart_trf`` on the tight MAPK-22 ``Project`` (K1 and K2) from
+   phase 7's 16 screened points, bounded to θ_true ± 1, ``FIT_TRF_ITERS``
+   TRF iterations, then 4 of them with ``subproblem='svd'`` and
+   ``loss='soft_l1'``: every θ strictly inside the box, statuses ≥ 0, the
+   best cost non-increasing, each run repeated on the CPU from the card's
+   input points (statuses equal, costs within 1e-4) and the tight
+   evaluation at the card's two best θ on the CPU (residuals 1e-7,
+   Jacobian 1e-4); ``[sample-mm3]``, ``cli.main(["sample", "--model",
+   "mm3", ...])`` at the CLI's 32 walkers, ``SAMPLE_STEPS`` sweeps and
+   ``--fit-iters SAMPLE_FIT_ITERS``: the chain's shape, finite log-probs,
+   ``fit_cost`` the JAX CLI's to 1e-6, K1 and K2 launched, and the same
+   command with ``--cpu`` giving the same chain relative to its fit to
+   1e-8 (the fits part by ~1e-5 along MM-3's k1/km1 valley, and every
+   walker is an affine combination of the start walkers).
+
 ``phase_egfr_10k(card, n_starts=10000)``, not called by ``main()``, is
 config 5 at its literal scale (``bench/experiments/egfr_10k.py``) through
 ``TwoPhaseDriver``, in a call of its own.
@@ -1004,7 +1020,8 @@ def phase_fit():
           f"fit CPU cross-check: tight evaluation {tv_rel:.3e}, "
           f"{tj_rel:.3e}")
     check(po_rel <= 1e-4, f"fit CPU cross-check: polish {po_rel:.3e}")
-    return (launches, l_screen, l_polish), (tight, screen, theta_true, starts)
+    return ((launches, l_screen, l_polish),
+            (tight, screen, theta_true, starts), (polish.theta0, best_cost))
 
 
 def phase_fit_major(problem):
@@ -2024,6 +2041,182 @@ def phase_egfr_10k(card, n_starts=10000):
             "cost_at_truth": cost_true, **info}
 
 
+# --------------------------------------------------------------------------
+# Bounded and robust fitting (optim/trf.py, optim/loss.py) and ensemble MCMC
+# through the CLI's sample (fit/mcmc.py)
+# --------------------------------------------------------------------------
+
+FIT_TRF_ITERS = 2           # TRF iterations of [fit-trf] (own depth: 20,
+#                             the headline polish's); its gates hold at 2
+FIT_TRF_ROBUST = 4          # members of the 'svd' / 'soft_l1' run
+SAMPLE_STEPS = 2            # [sample-mm3] sweeps (the CLI's 400), of which
+SAMPLE_BURN = 1             # the first is burned (the CLI's 100)
+SAMPLE_FIT_ITERS = 2        # --fit-iters (the CLI's 40; the fit stops at 13)
+# the JAX CLI's fit_cost for `sample --model mm3 --fit-iters N` on the CPU
+# (tpusysbio.cli.main(["--cpu", "sample", "--model", "mm3", "--fit-iters",
+# N, ...]); the walkers and sweeps do not enter the fit)
+JAX_SAMPLE_FIT_COST = {2: 10.479623649434698, 40: 10.470494519662243}
+
+
+def phase_fit_trf(card, problem, fit_top, iters):
+    """``multistart_trf`` on the tight MAPK-22 ``Project`` from [fit]'s 16
+    best screened points, bounded to θ_true ± 1, ``iters`` TRF iterations;
+    then the first ``FIT_TRF_ROBUST`` of them with ``subproblem='svd'`` and
+    ``loss='soft_l1'``. Each run is repeated on the CPU from the same
+    points, and the tight evaluation at the card's two best θ too."""
+    import torch
+
+    from tpusysbio_torch import FitConfig
+    from tpusysbio_torch.fit import multistart_trf
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+
+    tight, _, theta_true, _ = problem
+    top, lm_best = fit_top
+    lb, ub = theta_true - 1.0, theta_true + 1.0
+    cfg = FitConfig(max_iter=iters)
+    cpu = project_on_cpu(tight, library.mapk_huang_ferrell(device="cpu"))
+    cost_true = float(tight.cost(theta_true))
+    runs = {"normal/linear": dict(), "svd/soft_l1": dict(
+        subproblem="svd", loss="soft_l1")}
+    launches = dict.fromkeys(gpu_lu.LAUNCHES, 0)
+    results = {}
+    for tag, kw in runs.items():
+        x0 = top if not kw else top[:FIT_TRF_ROBUST]
+        gpu_lu.reset_launches()
+        t0 = time.perf_counter()
+        res = multistart_trf(tight.residuals, tight.residuals_and_jacobian,
+                             x0, lb, ub, cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, v in gpu_lu.LAUNCHES.items():
+            launches[k] += v
+        l_run = dict(gpu_lu.LAUNCHES)
+        results[tag] = res
+        th, cost = res.theta.cpu(), res.cost.cpu().numpy()
+        status = res.status.cpu().numpy()
+        trace = res.cost_trace.cpu().numpy()
+        best_by_iter = trace.min(axis=0)
+        inside = bool(((th > lb.cpu()) & (th < ub.cpu())).all())
+        print(f"[fit-trf] {card}: {tag}, {x0.shape[0]} members x {iters} "
+              f"TRF iterations in the box theta_true +- 1: wall {wall:.2f} "
+              f"s; statuses {status.tolist()}, iterations "
+              f"{res.n_iter.cpu().numpy().tolist()}; best cost "
+              f"{float(cost.min()):.6f} by iteration "
+              f"{[float(f'{c:.6f}') for c in best_by_iter]} (the LM "
+              f"polish's best {lm_best:.6f}, cost at theta_true "
+              f"{cost_true:.6f}); every theta strictly inside: {inside}; "
+              f"launches {l_run}", flush=True)
+        check(inside, f"fit-trf {tag}: a theta left the box")
+        check(bool((status >= 0).all()) and bool(np.isfinite(cost).all()),
+              f"fit-trf {tag}: statuses {status.tolist()}")
+        check(bool((np.diff(best_by_iter) <= 0).all()),
+              f"fit-trf {tag}: the best cost rose: {best_by_iter.tolist()}")
+        check(l_run["gj_inverse_f32"] > 0 and l_run["refine_solve"] > 0
+              and l_run["gj_inverse_major_f32"] == 0,
+              f"fit-trf {tag}: K1 and K2 must launch: {l_run}")
+
+        # the same TRF iterations on the CPU from the card's input points
+        # (the best four by the card's cost)
+        sel = np.argsort(cost, kind="stable")[:4].tolist()
+        t0 = time.perf_counter()
+        again = multistart_trf(cpu.residuals, cpu.residuals_and_jacobian,
+                               x0[sel].cpu(), lb.cpu(), ub.cpu(), cfg, **kw)
+        rel = float(np.max(np.abs(again.cost.numpy() - cost[sel])
+                           / cost[sel]))
+        same = bool(np.array_equal(again.status.numpy(), status[sel]))
+        print(f"[fit-trf] {tag}: the same iterations on the CPU from the "
+              f"card's input points (members {sel}, "
+              f"{time.perf_counter() - t0:.2f} s): statuses equal {same}, "
+              f"cost rel {rel:.3e} (bound 1e-4, the bound of [fit]'s "
+              f"polish)", flush=True)
+        check(same and rel <= 1e-4,
+              f"fit-trf {tag}: CPU re-run statuses {same}, cost {rel:.3e}")
+
+    # the tight evaluation at the card's two best theta, again on the CPU
+    best2 = results["normal/linear"].ranked().theta[:2]
+    ev_dev = tight.evaluate(best2, with_jac=True)
+    ev_cpu = cpu.evaluate(best2.cpu(), with_jac=True)
+    r_rel = rel_err(ev_dev.residuals.cpu().numpy(), ev_cpu.residuals.numpy())
+    j_rel = rel_err(ev_dev.jacobian.cpu().numpy(), ev_cpu.jacobian.numpy())
+    print(f"[fit-trf] the two best theta evaluated again on the CPU: "
+          f"residuals rel {r_rel:.3e} (bound 1e-7), Jacobian rel "
+          f"{j_rel:.3e} (bound 1e-4)", flush=True)
+    check(bool(torch.equal(ev_dev.status.cpu(), ev_cpu.status))
+          and r_rel <= 1e-7 and j_rel <= 1e-4,
+          f"fit-trf: CPU evaluation residuals {r_rel:.3e}, Jacobian "
+          f"{j_rel:.3e}")
+    return launches
+
+
+def phase_sample_mm3(card, steps, burn, fit_iters):
+    """``cli.main(["sample", "--model", "mm3", ...])`` at the CLI's 32
+    walkers, ``steps`` sweeps and ``--fit-iters fit_iters``; then the same
+    command with ``--cpu``."""
+    import torch
+
+    from tpusysbio_torch import cli
+    from tpusysbio_torch.linalg import gpu_lu
+
+    argv = ["sample", "--model", "mm3", "--steps", str(steps), "--burn",
+            str(burn), "--fit-iters", str(fit_iters)]
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    t0 = time.perf_counter()
+    on_cpu = cli.main(["--cpu"] + argv)
+    wall_cpu = time.perf_counter() - t0
+    rec, chain, lp = out["record"], out["chain"], out["log_prob"]
+    ref = JAX_SAMPLE_FIT_COST.get(fit_iters)
+    fit_rel = (abs(rec["fit_cost"] - ref) / ref if ref is not None
+               else float("nan"))
+    # every walker is an affine combination of the start walkers with
+    # weights summing to 1, so an offset of the fit moves the whole chain
+    # by it: the chains are compared relative to their fits
+    fit_dev = out["fit"].theta[0].cpu().numpy()
+    fit_cpu = on_cpu["fit"].theta[0].numpy()
+    fit_gap = float(np.max(np.abs(fit_dev - fit_cpu)))
+    raw_gap = float(np.max(np.abs(chain - on_cpu["chain"])))
+    rel_gap = float(np.max(np.abs((chain - fit_dev)
+                                  - (on_cpu["chain"] - fit_cpu))))
+    lp_gap = float(np.max(np.abs(lp - on_cpu["log_prob"])))
+    sigma = out["samples"].std(axis=0)
+    lm_sigma = out["fit"].param_sigma[0].cpu().numpy()
+    # the rows carry 1/sigma, so the Laplace covariance is (JᵀJ)⁻¹ itself;
+    # param_sigma scales it by the reduced chi-square
+    lap_sigma = np.sqrt(np.diag(out["fit"].cov[0].cpu().numpy()))
+    print(f"[sample-mm3] {card}: {rec['walkers']} walkers, {steps} sweeps "
+          f"(burn {burn}), --fit-iters {fit_iters}: wall {wall:.2f} s (the "
+          f"CPU {wall_cpu:.2f} s); fit_cost {rec['fit_cost']:.12f} (the JAX "
+          f"CLI's {ref}, rel {fit_rel:.2e}); mean acceptance "
+          f"{rec['mean_acceptance']}, max tau {rec['max_autocorr_time']}; "
+          f"posterior sigma {sigma.tolist()} against the LM Laplace sigma "
+          f"sqrt(diag(cov)) {lap_sigma.tolist()} (param_sigma "
+          f"{lm_sigma.tolist()}); launches {launches}", flush=True)
+    print(f"[sample-mm3] the same command with --cpu: fit theta apart by "
+          f"{fit_gap:.3e}; chains apart by {raw_gap:.3e}, relative to their "
+          f"fits by {rel_gap:.3e} (bound 1e-8); log-probs by {lp_gap:.3e}",
+          flush=True)
+    check(chain.shape == (steps, 32, 4) and lp.shape == (steps, 32),
+          f"sample-mm3: chain shape {chain.shape}")
+    check(bool(np.isfinite(lp).all()), "sample-mm3: a log-prob not finite")
+    check(ref is None or fit_rel <= 1e-6,
+          f"sample-mm3: fit_cost rel {fit_rel:.3e} to the JAX CLI's")
+    check(float(np.max(np.abs((out["x0"] - fit_dev)
+                              - (on_cpu["x0"] - fit_cpu)))) <= 1e-14,
+          "sample-mm3: the CPU run starts from another ball")
+    check(rel_gap <= 1e-8 and fit_gap <= 1e-4,
+          f"sample-mm3: the CPU chain differs by {rel_gap:.3e} relative "
+          f"to the fit (fits {fit_gap:.3e} apart)")
+    check(launches["gj_inverse_f32"] > 0 and launches["refine_solve"] > 0
+          and launches["gj_inverse_major_f32"] == 0,
+          f"sample-mm3: K1 and K2 must launch: {launches}")
+    return launches
+
+
 def jakstat_screen():
     """The screening ``Project`` of ``configs/jakstat.yaml`` and its 256
     starts, as ``cli.py`` builds them."""
@@ -2123,7 +2316,7 @@ def main():
                phase_k3(model, rng)]
     phase_floor()
     l_main, run = phase_main_path()
-    (l_fit, l_screen, l_polish), problem = phase_fit()
+    (l_fit, l_screen, l_polish), problem, fit_top = phase_fit()
     l_major = phase_fit_major(problem)
     l_egfr_sens, egfr = phase_egfr_sens(card)
     l_egfr_fit = phase_egfr_fit(card, egfr)
@@ -2136,6 +2329,9 @@ def main():
                               PROFILE_FIT_ITERS)
     l_small["pulse"] = phase_pulse(card, PULSE_FIT_ITERS)
     l_small["preeq"] = phase_preeq(card)
+    l_small["fit-trf"] = phase_fit_trf(card, problem, fit_top, FIT_TRF_ITERS)
+    l_small["sample-mm3"] = phase_sample_mm3(card, SAMPLE_STEPS, SAMPLE_BURN,
+                                             SAMPLE_FIT_ITERS)
     if "--profile" in sys.argv[1:]:
         phase_profile(run, "one main-path batch")
         screen, starts = problem[1], problem[3]

@@ -369,7 +369,7 @@ def test_cli_fit_example_at_a_cut_depth(capsys):
     (["sens", "--solver", "radau"], "12"),
     (["multistart", "--model", "mm3", "--plot", "x"], "14"),
     (["profile", "--plot", "x"], "14"),
-    (["sample", "--walkers", "16", "--steps", "60"], "11"),
+    (["simulate", "--solver", "rosenbrock"], "12"),
     (["bench"], "15"),
 ])
 def test_cli_unported_paths_raise(argv, item):

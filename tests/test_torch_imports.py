@@ -114,6 +114,7 @@ def _entry_points():
              str(ROOT / "configs" / "mm3.yaml")]),
         "cli.main profile": lambda: cli.main(["profile"]),
         "cli.main fit": lambda: cli.main(["fit", "--example", "mm3"]),
+        "cli.main sample": lambda: cli.main(["sample"]),
     }
 
 
@@ -130,7 +131,7 @@ def _entry_points():
     "Priors.create", "convert.priors_from_reference",
     "examples.jakstat_pulse_build_project", "examples.jakstat_pulse_fit",
     "cli.main simulate", "cli.main multistart --config",
-    "cli.main profile", "cli.main fit"])
+    "cli.main profile", "cli.main fit", "cli.main sample"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -145,7 +146,8 @@ def test_port_files_cover_the_fit_subpackages():
                 "convert.py", "linalg/gpu_lu.py", "linalg/compare_designs.py",
                 "model/library.py", "sens/forward.py", "fit/profile.py",
                 "config.py", "cli.py", "examples.py",
-                "solvers/steady_state.py", "project/priors.py"):
+                "solvers/steady_state.py", "project/priors.py",
+                "optim/loss.py", "optim/trf.py", "fit/mcmc.py"):
         assert f"tpusysbio_torch/{sub}" in rel
 
 

@@ -7,6 +7,7 @@ The same subcommands, flags and printed JSON keys as the reference:
     python -m tpusysbio_torch.cli fit        --example jakstat
     python -m tpusysbio_torch.cli multistart --config configs/mm3.yaml
     python -m tpusysbio_torch.cli profile    --model mm3
+    python -m tpusysbio_torch.cli sample     --model mm3
 
 It runs on the GPU; ``--cpu`` asks for the CPU, and without CUDA and
 without ``--cpu`` it raises. Every call returns, besides what it prints, a
@@ -23,9 +24,11 @@ Differences from the reference:
 - a config's ``mesh:`` section runs unsharded when it resolves to one
   device (what a one-device mesh computes) and says so on stderr; more
   than one device raises;
+- ``sample``'s chain takes its draws from a ``torch.Generator`` seeded by
+  ``--seed`` (its walkers start from the reference's numpy ball, so they
+  equal the JAX CLI's; the chains differ);
 - not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-  item: ``--solver`` other than ``bdf``, ``--plot``, ``sample`` and
-  ``bench``.
+  item: ``--solver`` other than ``bdf``, ``--plot`` and ``bench``.
 """
 
 from __future__ import annotations
@@ -396,7 +399,64 @@ def cmd_profile(args):
 
 
 def cmd_sample(args):
-    _unported("the sample subcommand (fit/mcmc.py)", "11")
+    """Posterior sampling on a canonical config: fit the synthetic
+    problem, then run ensemble MCMC (fit/mcmc.py, the emcee-style stretch
+    move over lockstep walkers) from a ball around the optimum and report
+    per-parameter posterior mean ± sigma."""
+    from tpusysbio_torch.config import FitConfig, SolverConfig
+    from tpusysbio_torch.fit import autocorr_time, ensemble_sample
+    from tpusysbio_torch.optim import lm_fit
+    from tpusysbio_torch.project import Project
+
+    dev = _device(args)
+    model, batch, pmap, free, theta_true = _synth_problem(args, dev)
+    cfg = SolverConfig(rtol=args.rtol, atol=args.atol,
+                       max_steps=args.max_steps,
+                       linear_solver=args.linear_solver,
+                       sens_precision="f32")
+    proj = Project(model=model, pmap=pmap, batch=batch, config=cfg)
+    fit_cfg = FitConfig(max_iter=args.fit_iters, eval_mode="lockstep")
+
+    t0 = time.perf_counter()
+    fit = lm_fit(proj.residuals, proj.residuals_and_jacobian,
+                 theta_true[None], fit_cfg)
+    rng = np.random.default_rng(args.seed)
+    x0 = torch.as_tensor(fit.theta[0].cpu().numpy()
+                         + args.init_ball * rng.normal(
+                             size=(args.walkers, len(free))), device=dev)
+    res = ensemble_sample(lambda th: -proj.cost(th), x0, args.steps,
+                          torch.Generator().manual_seed(args.seed),
+                          thin=args.thin)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+
+    burn = args.burn // args.thin
+    samp = res.flat(burn=burn).cpu().numpy()
+    tau = autocorr_time(res.chain[burn:])
+    acc = res.acceptance.cpu().numpy()
+    rec = {
+        "model": args.model, "free_params": len(free),
+        "walkers": args.walkers, "steps": args.steps,
+        "kept_samples": int(samp.shape[0]),
+        "wall_seconds": round(wall, 1),
+        "fit_cost": float(fit.cost[0]),
+        "mean_acceptance": round(float(acc.mean()), 3),
+        "max_autocorr_time": round(float(tau.max()), 1),
+    }
+    print(json.dumps(rec))
+    mu, sd = samp.mean(axis=0), samp.std(axis=0)
+    for p, name in enumerate(free):
+        print(f"  {name:>16s}: {np.exp(mu[p]):.6g}  "
+              f"(x/÷ {np.exp(sd[p]):.4g}; τ={tau[p]:.1f})")
+    chain, log_prob = res.chain.cpu().numpy(), res.log_prob.cpu().numpy()
+    if args.out:
+        np.savez(args.out, chain=chain, log_prob=log_prob, acceptance=acc,
+                 free=np.asarray(free))
+        print(f"chain saved to {args.out}", file=sys.stderr)
+    return {"record": rec, "wall": wall, "fit": fit,
+            "x0": x0.cpu().numpy(), "chain": chain, "log_prob": log_prob,
+            "acceptance": acc, "tau": tau, "samples": samp,
+            "project": proj}
 
 
 def main(argv=None):
@@ -504,23 +564,30 @@ def main(argv=None):
                       help="(not ported)")
     p_pl.set_defaults(fn=cmd_profile)
 
-    # the reference's flags, so that its command lines reach the
-    # NotImplementedError instead of an argparse error
-    p_mc = sub.add_parser("sample", help="(not ported)")
+    p_mc = sub.add_parser(
+        "sample",
+        help="posterior sampling via ensemble MCMC on a canonical config "
+             "(fit, then emcee-style stretch-move walkers)")
     p_mc.add_argument("--model", default="mm3",
                       choices=list(_FREE_PARAMS.keys()))
-    for flag, typ, default in (
-            ("--walkers", int, 32), ("--steps", int, 400),
-            ("--burn", int, 100), ("--thin", int, 1),
-            ("--init-ball", float, 0.01), ("--fit-iters", int, 40),
-            ("--noise", float, 0.02), ("--seed", int, 0),
-            ("--t-end", float, 10.0), ("--n-times", int, 12),
-            ("--rtol", float, 1e-6), ("--atol", float, 1e-9),
-            ("--max-steps", int, 512)):
-        p_mc.add_argument(flag, type=typ, default=default)
+    p_mc.add_argument("--walkers", type=int, default=32)
+    p_mc.add_argument("--steps", type=int, default=400)
+    p_mc.add_argument("--burn", type=int, default=100,
+                      help="sweeps discarded before moments (pre-thin)")
+    p_mc.add_argument("--thin", type=int, default=1)
+    p_mc.add_argument("--init-ball", type=float, default=0.01,
+                      help="walker init sigma around the optimum (log)")
+    p_mc.add_argument("--fit-iters", type=int, default=40)
+    p_mc.add_argument("--noise", type=float, default=0.02)
+    p_mc.add_argument("--seed", type=int, default=0)
+    p_mc.add_argument("--t-end", type=float, default=10.0)
+    p_mc.add_argument("--n-times", type=int, default=12)
+    p_mc.add_argument("--rtol", type=float, default=1e-6)
+    p_mc.add_argument("--atol", type=float, default=1e-9)
+    p_mc.add_argument("--max-steps", type=int, default=512)
     p_mc.add_argument("--linear-solver", default="pallas",
                       choices=["lu", "inv", "inv32", "pallas"])
-    p_mc.add_argument("--out", default=None)
+    p_mc.add_argument("--out", default=None, help="save chain to .npz")
     p_mc.set_defaults(fn=cmd_sample)
 
     args = parser.parse_args(argv)

@@ -1,10 +1,13 @@
-"""Multi-start fitting and profile likelihood (``tpusysbio/fit``'s names,
-for what is ported)."""
+"""Multi-start fitting (LM or bounded TRF), profile likelihood and ensemble
+MCMC (``tpusysbio/fit``'s names)."""
 
+from tpusysbio_torch.fit.mcmc import (MCMCResult, autocorr_time,
+                                      ensemble_sample)
 from tpusysbio_torch.fit.multistart import (MultistartResult,
                                             TwoPhaseDriver,
                                             make_multistart_runner,
                                             multistart_fit,
+                                            multistart_trf,
                                             multistart_two_phase,
                                             run_chunked)
 from tpusysbio_torch.fit.profile import (ProfileResult,
@@ -12,8 +15,8 @@ from tpusysbio_torch.fit.profile import (ProfileResult,
                                          profile_likelihood)
 from tpusysbio_torch.fit.sampling import latin_hypercube, uniform_starts
 
-__all__ = ["MultistartResult", "ProfileResult", "TwoPhaseDriver",
-           "confidence_intervals", "latin_hypercube",
-           "make_multistart_runner", "multistart_fit",
-           "multistart_two_phase", "profile_likelihood", "run_chunked",
-           "uniform_starts"]
+__all__ = ["MCMCResult", "MultistartResult", "ProfileResult",
+           "TwoPhaseDriver", "autocorr_time", "confidence_intervals",
+           "ensemble_sample", "latin_hypercube", "make_multistart_runner",
+           "multistart_fit", "multistart_trf", "multistart_two_phase",
+           "profile_likelihood", "run_chunked", "uniform_starts"]

@@ -3,7 +3,8 @@
 Port of ``tpusysbio/fit/multistart.py``. Call stack:
 
     sampler (LHS in log bounds, seeded generator)
-    └─ batched LM fit over the starts (optim/lm.py)
+    └─ batched LM or bounded TRF fit over the starts (optim/lm.py,
+       optim/trf.py)
        └─ BDF + forward sensitivities over starts × experiments
           (solvers/bdf.py)
     └─ ranking of (θ*, cost, status)
@@ -13,10 +14,11 @@ their status in the result tensors and are ranked last — never aborting the
 batch. Checkpoint/resume: chunked execution writes an .npz after every
 chunk; a resumed run skips completed chunks.
 
-Not ported yet (``NotImplementedError``): ``mesh=`` (the sharded slice),
-``compact=True``, ``presort_fn=`` and ``bounds=``/``polish_bounds=`` (the
-bounded trust-region solver, with its ``subproblem``/``loss``/``f_scale``
-arguments).
+``bounds=`` (``multistart_trf``, ``polish_bounds=``) switches a phase from
+LM to the bounded Coleman–Li TRF (``optim/trf.py``) with its
+``subproblem``/``loss``/``f_scale``; both states are resumable, so
+``iter_chunk``, ``compact`` and checkpointing work over either. Not ported
+yet (``NotImplementedError``, ROADMAP Queue 1 item 14): ``mesh=``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from tpusysbio_torch.config import FitConfig
-from tpusysbio_torch.optim.lm import lm_finish, lm_init, lm_run
+from tpusysbio_torch.optim.lm import FitResult, lm_finish, lm_init, lm_run
+from tpusysbio_torch.optim.trf import trf_finish, trf_init, trf_run
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -43,11 +46,10 @@ def _wait(x) -> None:
         torch.cuda.synchronize(x.device)
 
 
-def _unported(**used) -> None:
-    names = [k for k, v in used.items() if v]
-    if names:
+def _unported_mesh(mesh) -> None:
+    if mesh is not None:
         raise NotImplementedError(
-            "multistart: not ported yet: " + ", ".join(names))
+            "multistart: mesh= is not ported yet (ROADMAP Queue 1 item 14)")
 
 
 class MultistartResult(NamedTuple):
@@ -95,25 +97,62 @@ def _rank_order(status, cost):
     return torch.argsort(key, stable=True)
 
 
+def _phase_fns(residual_fn: Callable, residual_and_jac_fn: Callable,
+               config: FitConfig, bounds, subproblem: str, loss: str,
+               f_scale: float):
+    """``(init, step, finish)`` for one optimizer family: unbounded LM
+    (``bounds=None``) or the bounded Coleman–Li TRF with its robust loss.
+    Both states are resumable, so every multi-start path runs over
+    either."""
+    if bounds is None:
+        return (
+            lambda th: lm_init(residual_and_jac_fn, th, config),
+            lambda st, cap: lm_run(residual_fn, residual_and_jac_fn, st,
+                                   config, iter_cap=cap),
+            lm_finish,
+        )
+    lb, ub = bounds
+    return (
+        lambda th: trf_init(residual_and_jac_fn, th, lb, ub, config,
+                            loss=loss, f_scale=f_scale),
+        lambda st, cap: trf_run(residual_fn, residual_and_jac_fn, st, lb,
+                                ub, config, iter_cap=cap,
+                                subproblem=subproblem, loss=loss,
+                                f_scale=f_scale),
+        trf_finish,
+    )
+
+
+def _take(x, idx: np.ndarray):
+    """Rows ``idx`` of a tensor (on its device) or of a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x[torch.as_tensor(idx, device=x.device)]
+    return x[idx]
+
+
 def _fit_batch_fn(residual_fn: Callable, residual_and_jac_fn: Callable,
                   config: FitConfig, iter_chunk: Optional[int],
-                  with_cov: bool):
-    """The batch fit: whole, or advanced ``iter_chunk`` LM iterations per
-    ``lm_run`` call (bounded single-call time; the hook for mid-fit
-    checkpointing)."""
+                  compact: bool, with_cov: bool, bounds=None,
+                  subproblem: str = "normal", loss: str = "linear",
+                  f_scale: float = 1.0):
+    """The batch fit: whole, or advanced ``iter_chunk`` LM/TRF iterations
+    per ``step`` call (bounded single-call time; the hook for mid-fit
+    checkpointing), with ``compact`` repacking the live members between
+    chunks."""
+    init, step, finish_fn = _phase_fns(residual_fn, residual_and_jac_fn,
+                                       config, bounds, subproblem, loss,
+                                       f_scale)
 
     def finish(state):
-        fr = lm_finish(state)
+        fr = finish_fn(state)
         return fr if with_cov else fr._replace(cov=None, param_sigma=None)
 
-    def step(state, cap):
-        return lm_run(residual_fn, residual_and_jac_fn, state, config,
-                      iter_cap=cap)
-
     def run(theta0s):
-        state = lm_init(residual_and_jac_fn, theta0s, config)
+        state = init(theta0s)
         if not iter_chunk:
             return finish(step(state, config.max_iter))
+        if compact:
+            return run_compact(state, theta0s.shape[0])
         # The early-exit check lags one chunk behind: chunk c+1 is
         # dispatched before chunk c's done flags are read. Worst case one
         # extra no-op call (lm_run returns an all-done state unchanged).
@@ -129,6 +168,49 @@ def _fit_batch_fn(residual_fn: Callable, residual_and_jac_fn: Callable,
             cap += iter_chunk
         return finish(state)
 
+    def run_compact(state, N):
+        # Batch compaction: finished members leave the lockstep between
+        # chunks. They are flushed into result rows and the survivors
+        # repacked into the next power-of-two batch (at least min(8, N));
+        # pad slots repeat a survivor and are dropped at flush.
+        orig_idx = np.arange(N)
+        rows, parts = [], []
+
+        def flush(mask, state, idxs):
+            slots = np.flatnonzero(mask & (idxs >= 0))
+            fr = finish(state)
+            rows.append(idxs[slots])
+            parts.append([None if a is None else _take(a, slots)
+                          for a in fr])
+
+        cap = iter_chunk
+        while True:
+            state = step(state, min(cap, config.max_iter))
+            done = (state.done | (state.n_iter >= config.max_iter)
+                    ).cpu().numpy()
+            if done.all() or cap >= config.max_iter:
+                flush(np.ones_like(done), state, orig_idx)
+                break
+            n_live = int((~done).sum())
+            cur = orig_idx.shape[0]
+            # repack when at most half the slots are live and the repack
+            # shrinks the batch
+            if n_live <= cur // 2:
+                new_size = max(1 << (n_live - 1).bit_length(), min(8, cur))
+                if new_size < cur:
+                    flush(done, state, orig_idx)
+                    live = np.flatnonzero(~done)
+                    sel = np.concatenate(
+                        [live, np.full(new_size - n_live, live[0])])
+                    state = type(state)(*(_take(a, sel) for a in state))
+                    orig_idx = np.concatenate(
+                        [orig_idx[live], np.full(new_size - n_live, -1)])
+            cap += iter_chunk
+        order = np.argsort(np.concatenate(rows), kind="stable")
+        fields = [None if xs[0] is None else _take(torch.cat(xs), order)
+                  for xs in zip(*parts)]
+        return FitResult(*fields)
+
     return run
 
 
@@ -141,16 +223,25 @@ def make_multistart_runner(
     compact: bool = False,
     with_cov: bool = True,
     bounds=None,
+    subproblem: str = "normal",
+    loss: str = "linear",
+    f_scale: float = 1.0,
 ) -> Callable:
     """Build a reusable batch-fit callable ``runner(theta0s (N, G)) ->
     MultistartResult`` for one (objective, config).
 
     ``with_cov=False`` (screening) returns ``cov``/``param_sigma`` as None.
+    ``bounds=(lower, upper)`` switches every member from unbounded LM to
+    the Coleman–Li bounded TRF (``optim/trf.py``) with ``subproblem``,
+    ``loss`` and ``f_scale``. ``compact=True`` acts under ``iter_chunk``
+    only: between chunks it flushes the done members and repacks the live
+    ones into the next power-of-two batch (pays off for long-tailed
+    convergence).
     """
-    _unported(mesh=mesh is not None, compact=compact,
-              bounds=bounds is not None)
+    _unported_mesh(mesh)
     run = _fit_batch_fn(residual_fn, residual_and_jac_fn, config,
-                        iter_chunk, with_cov)
+                        iter_chunk, compact, with_cov, bounds=bounds,
+                        subproblem=subproblem, loss=loss, f_scale=f_scale)
 
     def runner(theta0s):
         fr = run(theta0s)
@@ -341,7 +432,8 @@ def multistart_fit(
     With ``checkpoint_path``/``chunk_size``, the batch runs in chunks and
     each completed chunk is persisted; re-running resumes after the last
     one. With ``iter_chunk``, each ``lm_run`` call advances the
-    (resumable) LM state by at most that many iterations.
+    (resumable) LM state by at most that many iterations; ``compact=True``
+    then also repacks the live members between chunks.
     """
     run = make_multistart_runner(residual_fn, residual_and_jac_fn, config,
                                  mesh=mesh, iter_chunk=iter_chunk,
@@ -353,6 +445,38 @@ def multistart_fit(
                          checkpoint_path=checkpoint_path,
                          trace_len=config.max_iter, config=config)
     return res
+
+
+def multistart_trf(
+    residual_fn: Callable,
+    residual_and_jac_fn: Callable,
+    theta0s: torch.Tensor,
+    lower,
+    upper,
+    config: FitConfig = FitConfig(),
+    mesh=None,
+    subproblem: str = "normal",
+    loss: str = "linear",
+    f_scale: float = 1.0,
+    iter_chunk: Optional[int] = None,
+) -> MultistartResult:
+    """Bounded multi-start: the Coleman–Li TRF over the starts axis.
+
+    The bounded counterpart of :func:`multistart_fit` (PEtab problems carry
+    box bounds); robust ``loss``/``f_scale`` pass straight through to every
+    member, and ``iter_chunk`` bounds the time of one call as in
+    ``multistart_fit``. For screening-scale N use :class:`TwoPhaseDriver`
+    with an LM screen and ``polish_bounds`` for the bounded polish.
+    """
+    lower = torch.as_tensor(lower, dtype=theta0s.dtype,
+                            device=theta0s.device)
+    upper = torch.as_tensor(upper, dtype=theta0s.dtype,
+                            device=theta0s.device)
+    run = make_multistart_runner(
+        residual_fn, residual_and_jac_fn, config, mesh=mesh,
+        iter_chunk=iter_chunk, bounds=(lower, upper),
+        subproblem=subproblem, loss=loss, f_scale=f_scale)
+    return run(theta0s)
 
 
 def multistart_two_phase(
@@ -373,6 +497,9 @@ def multistart_two_phase(
     polish_subbatch: Optional[int] = None,
     return_info: bool = False,
     polish_bounds=None,
+    polish_subproblem: str = "normal",
+    polish_loss: str = "linear",
+    polish_f_scale: float = 1.0,
     presort_fn: Optional[Callable] = None,
 ):
     """Two-phase multi-start: wide cheap screening, then accurate polish.
@@ -396,6 +523,15 @@ def multistart_two_phase(
         the screen result; 'all' carries every channel.
       polish_iter_chunk: the polish phase's per-call iteration cap
         (defaults to ``iter_chunk``).
+      polish_bounds: ``(lower, upper)``; the polish becomes the bounded
+        TRF with ``polish_subproblem``, ``polish_loss`` and
+        ``polish_f_scale`` (the screen stays unbounded LM).
+      presort_fn: ``(B, G) -> (B,)`` sort key (typically a
+        sensitivity-free integration's step count at the screen config),
+        used with ``chunk_size``: the starts are screened in key-sorted
+        chunks, so each chunk's lockstep groups members of similar cost;
+        results come back in the caller's order. Pays only when the
+        per-start step distribution is broad beside the probe's cost.
 
     Returns ``(polish_result, screen_result)``; with ``return_info=True``
     additionally a dict with phase wall times and resume counts.
@@ -406,7 +542,8 @@ def multistart_two_phase(
         polish_iter_chunk=polish_iter_chunk, chunk_size=chunk_size,
         screen_channels=screen_channels, run_tag=run_tag,
         polish_subbatch=polish_subbatch, polish_bounds=polish_bounds,
-        presort_fn=presort_fn)
+        polish_subproblem=polish_subproblem, polish_loss=polish_loss,
+        polish_f_scale=polish_f_scale, presort_fn=presort_fn)
     polish, screen, info = two_phase.run(
         theta0s, checkpoint_path=checkpoint_path, resume=resume)
     return (polish, screen, info) if return_info else (polish, screen)
@@ -429,10 +566,12 @@ class TwoPhaseDriver:
                  run_tag: str = "",
                  polish_subbatch: Optional[int] = None,
                  polish_bounds=None,
+                 polish_subproblem: str = "normal",
+                 polish_loss: str = "linear",
+                 polish_f_scale: float = 1.0,
                  presort_fn: Optional[Callable] = None):
-        _unported(mesh=mesh is not None,
-                  polish_bounds=polish_bounds is not None,
-                  presort_fn=presort_fn is not None)
+        _unported_mesh(mesh)
+        self.presort_fn = presort_fn
         self.screen_config = screen_config
         self.polish_config = polish_config
         self.top_k = top_k
@@ -455,18 +594,23 @@ class TwoPhaseDriver:
         pic = iter_chunk if polish_iter_chunk is None else polish_iter_chunk
         self.polish_run = make_multistart_runner(
             polish_fns[0], polish_fns[1], polish_config,
-            iter_chunk=(pic or None))
+            iter_chunk=(pic or None), bounds=polish_bounds,
+            subproblem=polish_subproblem, loss=polish_loss,
+            f_scale=polish_f_scale)
 
     def warmup(self, theta_rep: torch.Tensor) -> float:
         """Run both phases on their production shapes: one screen chunk
-        and one top_k polish batch, all rows = ``theta_rep`` (a
-        representative start). Returns the wall seconds spent."""
+        and one top_k polish batch (and the presort key on a chunk), all
+        rows = ``theta_rep`` (a representative start). Returns the wall
+        seconds spent."""
         t0 = time.perf_counter()
         G = theta_rep.shape[0]
         n = self.chunk_size or max(self.top_k, 1)
         pb = self.polish_subbatch or self.top_k
         _wait(self.screen_run(theta_rep.expand(n, G).clone()).cost)
         _wait(self.polish_run(theta_rep.expand(pb, G).clone()).cost)
+        if self.presort_fn is not None:
+            _wait(self.presort_fn(theta_rep.expand(n, G).clone()))
         return time.perf_counter() - t0
 
     def run(self, theta0s: torch.Tensor,
@@ -477,11 +621,33 @@ class TwoPhaseDriver:
         starts = theta0s
         n_pad = 0
         t0 = time.perf_counter()
-        if self.chunk_size and self.chunk_size < N:
+        chunked = bool(self.chunk_size and self.chunk_size < N)
+        inv_order = None
+        if self.presort_fn is not None and chunked:
+            # probe-sorted chunking: one key per start, probed in chunks
+            # (the last start cloned into the pad), sorted stably
+            cs = self.chunk_size
+            probe_pad = (-N) % cs
+            probe_in = (torch.cat([starts, starts[-1:].expand(
+                probe_pad, starts.shape[1])]) if probe_pad else starts)
+            keys = np.concatenate([
+                _to_numpy(self.presort_fn(probe_in[i:i + cs]))
+                for i in range(0, probe_in.shape[0], cs)])[:N]
+            order = np.argsort(keys, kind="stable")
+            inv_order = np.empty(N, np.int64)
+            inv_order[order] = np.arange(N)
+            starts = _take(starts, order)
+        t_presort = time.perf_counter() - t0
+        if chunked:
             n_pad = (-N) % self.chunk_size
             if n_pad:
+                # presorted: pad with clones of the last (most expensive)
+                # start, which cannot raise its chunk's lockstep union;
+                # unsorted keeps the first start's clone
+                pad_src = starts[-1:] if inv_order is not None \
+                    else starts[:1]
                 starts = torch.cat(
-                    [starts, starts[:1].expand(n_pad, starts.shape[1])])
+                    [starts, pad_src.expand(n_pad, starts.shape[1])])
             screen, chunks_resumed = run_chunked(
                 self.screen_run, starts, self.chunk_size,
                 checkpoint_path=checkpoint_path, resume=resume,
@@ -496,6 +662,12 @@ class TwoPhaseDriver:
             screen = self.screen_run(starts)
             chunks_resumed = 0
         _wait(screen.cost)
+        if inv_order is not None:
+            # the caller's start order (ranking below does not depend on
+            # it; the pairing with theta0 does)
+            screen = MultistartResult(
+                *(None if a is None else _take(a, inv_order)
+                  for a in screen))
         t1 = time.perf_counter()
 
         # chunked screen results are host-resident: rank in numpy and
@@ -516,5 +688,6 @@ class TwoPhaseDriver:
         t2 = time.perf_counter()
         return polish, screen, {
             "screen_seconds": t1 - t0, "polish_seconds": t2 - t1,
+            "presort_seconds": t_presort,
             "chunks_resumed": chunks_resumed, "n_pad": n_pad,
         }

@@ -82,6 +82,20 @@ def _grad(J, r):
     return (J.transpose(1, 2) @ r[:, :, None])[:, :, 0]
 
 
+def _traced(trace, n_iter, cost):
+    """``trace[:, n_iter] = cost`` per member (dropped beyond the trace)."""
+    slots = torch.arange(trace.shape[1], device=cost.device)
+    return torch.where(slots[None, :] == n_iter[:, None], cost[:, None],
+                       trace)
+
+
+def _frozen(new, old, live):
+    """``new`` where a member is live, else its whole ``old`` state."""
+    return type(new)(*(
+        torch.where(live.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+        for a, b in zip(new, old)))
+
+
 def lm_init(residual_and_jac_fn: Callable, theta0: torch.Tensor,
             config: FitConfig = FitConfig()) -> LMState:
     """Evaluate the initial points ``theta0`` (N, G) into an LM state."""
@@ -149,7 +163,6 @@ def lm_run(residual_fn: Callable, residual_and_jac_fn: Callable,
     cap = config.max_iter if iter_cap is None else int(iter_cap)
     eps = torch.finfo(dtype).eps
     lockstep = config.eval_mode == "lockstep"
-    trace_len = state.cost_trace.shape[1]
 
     def clip_theta(th):
         if lower is not None:
@@ -240,19 +253,14 @@ def lm_run(residual_fn: Callable, residual_and_jac_fn: Callable,
                         torch.where(xtol_hit | stuck, 3, 0))
         ).to(torch.int32)
 
-        # cost_trace[n_iter] = cost_new (dropped beyond the trace)
-        slots = torch.arange(trace_len, device=cost_new.device)
-        trace = torch.where(slots[None, :] == st.n_iter[:, None],
-                            cost_new[:, None], st.cost_trace)
         new = LMState(
             theta=theta_new, r=r_new, J=J_new, cost=cost_new,
             lam=lam_new, nu=nu_new, status=status, done=status > 0,
             n_iter=st.n_iter + 1, nfev=nfev, njev=njev,
-            grad_norm=g_norm, cost_trace=trace)
+            grad_norm=g_norm,
+            cost_trace=_traced(st.cost_trace, st.n_iter, cost_new))
         # members that are not live keep their whole state
-        return LMState(*(
-            torch.where(live.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
-            for a, b in zip(new, st)))
+        return _frozen(new, st, live)
 
     while True:
         live = ~state.done & (state.n_iter < cap)
