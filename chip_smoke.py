@@ -2217,6 +2217,761 @@ def phase_sample_mm3(card, steps, burn, fit_iters):
     return launches
 
 
+# --------------------------------------------------------------------------
+# The other steppers and the BDF's channels: Radau, Rosenbrock, auto,
+# dopri5 and Adams, multiple shooting, events and dense output, backward
+# integration, the CLI's --solver
+# --------------------------------------------------------------------------
+
+RADAU_BATCH = 64            # [radau-mapk22]: bench/harness.py's Radau row
+RADAU_T = np.linspace(0.0, 100.0, 21)
+AUTO_BATCH = 16             # [auto-mapk22]: the golden p and 15 spread
+EXPLICIT_BATCH = 256        # [explicit]: adams_ensemble_bench.py's width
+EXPLICIT_MODELS = {"lotka": ("lotka_volterra", 15.0),
+                   "repressilator": ("repressilator", 40.0)}
+MS_T_END, MS_WINDOWS, MS_SWEEPS = 60.0, 8, 3   # [multishoot] (own depth:
+#                                                600, 16, 4 in a call of
+#                                                its own)
+EVENTS_BATCH, DENSE_BATCH = 64, 16             # [events-mapk22]
+# the 41-point grid plus a 0.01 grid over [15, 35], where the terminal
+# events fall, so that the terminal steps (~0.05-0.1 long there at rtol
+# 1e-8) hold t_eval points
+EVENTS_T = np.union1d(np.linspace(0.0, 100.0, 41),
+                      np.linspace(15.0, 35.0, 2001))
+BACKWARD_BATCH = 64                            # [backward-mm3]
+# MM-3 backward over [10, 0] is ill-posed: its fast mode (rate ~7-18)
+# grows backward, and SciPy's BDF at rtol=1e-10 stops with a step below
+# the spacing of numbers, from y0 and from y(10) alike; from y(10) back to
+# t=8 SciPy retraces the forward trajectory to 6e-11, to t=5 only to 1e-2
+BACKWARD_SPAN = (10.0, 8.0)
+# tests/test_solvers.py's MM-3 bound per solver (Adams: tests/test_adams.py
+# on Lotka at the same rtol, 1e-3; auto hands MM-3 to BDF: BDF's)
+CLI_SOLVER_BOUND = {"radau": 1e-4, "rosenbrock": 5e-3, "dopri5": 3e-4,
+                    "adams": 1e-3, "auto": 3e-4}
+
+
+class Laps:
+    """Wall time between calls, by the label of the phase just ended."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = []
+
+    def __call__(self, label):
+        now = time.perf_counter()
+        self.laps.append((label, now - self.t))
+        self.t = now
+
+    def report(self, what):
+        total = sum(s for _, s in self.laps)
+        print(f"[timing] {what}: {total:.1f} s: " + ", ".join(
+            f"{label} {s:.1f}" for label, s in self.laps), flush=True)
+
+
+def spread(p_true, batch, seed=0, scale=0.1):
+    rng = np.random.default_rng(seed)
+    return np.asarray(p_true)[None] * np.exp(
+        rng.normal(scale=scale, size=(batch, len(p_true))))
+
+
+def launches_now():
+    from tpusysbio_torch.linalg import gpu_lu
+
+    return dict(gpu_lu.LAUNCHES), dict(gpu_lu.LAUNCHES_BY_N)
+
+
+def check_k1_k2(tag, launches, need_k2=True):
+    check(launches["gj_inverse_f32"] > 0
+          and (launches["refine_solve"] > 0 or not need_k2)
+          and launches["gj_inverse_major_f32"] == 0,
+          f"{tag}: K1{' and K2' if need_k2 else ''} must launch: "
+          f"{launches}")
+
+
+def phase_radau_mapk22(card):
+    """Radau IIA on MAPK-22 with all 30 sensitivities in f32 at 64 members
+    under 'pallas' (K1 at n=22 and at the complex matrix's 2n=44
+    embedding, K2 on the f64 state column at both); the golden trajectory;
+    2 members on the CPU."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+
+    model = library.mapk_huang_ferrell(device="cuda")
+    ps = spread(library.mapk_true_params(device="cpu").numpy(),
+                RADAU_BATCH)
+    cfg = SolverConfig(rtol=1e-6, atol=1e-9, max_steps=2048,
+                       linear_solver="pallas", sens_precision="f32")
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    res = model.simulate_sensitivities(ps, (0.0, 100.0), RADAU_T,
+                                       solver="radau", config=cfg,
+                                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_n = launches_now()
+    status = res.status.cpu().numpy()
+    nsteps = res.nsteps.cpu().numpy()
+    print(f"[radau-mapk22] {card}: {int((status == 1).sum())}/{RADAU_BATCH}"
+          f" members status 1, wall {wall:.2f} s, mean_nsteps "
+          f"{nsteps.mean():.2f} (max {int(nsteps.max())}), mean nlu "
+          f"{res.nlu.float().mean().item():.2f}; launches {launches}, K1 by "
+          f"n {by_n}", flush=True)
+    check(bool((status == 1).all()), "radau-mapk22: a member not DONE")
+    check(by_n.get(("gj_inverse_f32", 22), 0) > 0
+          and by_n.get(("gj_inverse_f32", 44), 0) > 0,
+          f"radau-mapk22: K1 must launch at n=22 and n=44: {by_n}")
+    check_k1_k2("radau-mapk22", launches)
+    check(bool(torch.isfinite(res.sens).all()), "radau-mapk22: sens")
+
+    # the golden trajectory (tests/test_solvers.py's Radau MAPK-22 case)
+    g = np.load(os.path.join(ROOT, "tests", "golden", "mapk22.npz"))
+    gcfg = SolverConfig(rtol=1e-6, atol=1e-9, max_steps=1024,
+                        linear_solver="pallas")
+    gres = model.simulate(g["p"][None], tuple(g["t_span"]), g["t_eval"],
+                          solver="radau", config=gcfg, device="cuda")
+    gerr = rel_err(gres.ys[0].cpu().numpy(), g["ys"])
+    print(f"[radau-mapk22] golden mapk22: status {int(gres.status[0])}, "
+          f"{int(gres.nsteps[0])} steps (bound < 300), error "
+          f"{gerr:.3e} (bound 1e-6)", flush=True)
+    check(int(gres.status[0]) == 1 and gerr < 1e-6
+          and int(gres.nsteps[0]) < 300, "radau-mapk22: golden")
+
+    # 2 members again on the CPU (the kernels' plain versions)
+    t0 = time.perf_counter()
+    ref = library.mapk_huang_ferrell(device="cpu").simulate_sensitivities(
+        ps[:2], (0.0, 100.0), RADAU_T, solver="radau", config=cfg,
+        device="cpu")
+    ys_rel = rel_err(res.ys[:2].cpu().numpy(), ref.ys.numpy())
+    sens_rel = rel_err(res.sens[:2].cpu().numpy(), ref.sens.numpy())
+    cpu_s = time.perf_counter() - t0
+    print(f"[radau-mapk22] 2 members on the CPU ({cpu_s:.2f} s): nsteps "
+          f"card {nsteps[:2].tolist()} CPU {ref.nsteps.tolist()}, ys rel "
+          f"{ys_rel:.3e} (bound 1e-7), sens rel {sens_rel:.3e} (bound "
+          f"1e-4)", flush=True)
+    check(ys_rel <= 1e-7 and sens_rel <= 1e-4
+          and bool((ref.status == 1).all()),
+          f"radau-mapk22: CPU ys {ys_rel:.3e}, sens {sens_rel:.3e}")
+    return launches, by_n
+
+
+def phase_rosenbrock_fit(card, problem):
+    """One evaluation with Jacobian of [fit]'s MAPK-22 Project at its 256
+    screening starts, with solver='rosenbrock' at the screen's tolerances
+    in f64 under 'pallas'."""
+    import dataclasses
+
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+
+    tight, _, _, starts = problem
+    proj = dataclasses.replace(
+        tight, solver="rosenbrock",
+        config=SolverConfig(rtol=1e-3, atol=1e-6, max_steps=512,
+                            linear_solver="pallas"))
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    ev = proj.evaluate(starts, with_jac=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = launches_now()
+    cost = ev.cost.cpu().numpy()
+    n_fin = int(np.isfinite(cost).sum())
+    nsteps = ev.nsteps.cpu().numpy()
+    print(f"[rosenbrock-fit] {card}: {starts.shape[0]} starts with Jacobian "
+          f"in {wall:.2f} s; finite costs {n_fin}/{starts.shape[0]} (bound "
+          f">= 240), statuses 1: {int((ev.status.cpu().numpy() == 1).sum())}"
+          f", mean_nsteps {nsteps.mean():.2f} (max {int(nsteps.max())}); "
+          f"launches {launches}", flush=True)
+    check(n_fin >= 240, f"rosenbrock-fit: {n_fin} finite costs")
+    check_k1_k2("rosenbrock-fit", launches)
+    cpu = project_on_cpu(proj, library.mapk_huang_ferrell(device="cpu"))
+    sel = [int(i) for i in np.flatnonzero(np.isfinite(cost))[:2]]
+    again = cpu.evaluate(starts[sel].cpu(), with_jac=True)
+    r_rel = rel_err(ev.residuals[sel].cpu().numpy(), again.residuals.numpy())
+    j_rel = rel_err(ev.jacobian[sel].cpu().numpy(), again.jacobian.numpy())
+    print(f"[rosenbrock-fit] starts {sel} on the CPU: residuals rel "
+          f"{r_rel:.3e} (bound 1e-7), Jacobian rel {j_rel:.3e} (bound 1e-4)",
+          flush=True)
+    check(r_rel <= 1e-7 and j_rel <= 1e-4,
+          f"rosenbrock-fit: CPU residuals {r_rel:.3e}, Jacobian {j_rel:.3e}")
+    return launches
+
+
+def phase_auto_mapk22(card):
+    """``auto_solve`` on the golden MAPK-22 problem (tests/test_solvers.py's
+    stiff fallback): the golden p and 15 spread members, nonstiff budget
+    256, 'pallas'."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.solvers import auto_solve
+
+    g = np.load(os.path.join(ROOT, "tests", "golden", "mapk22.npz"))
+    model = library.mapk_huang_ferrell(device="cuda")
+    ps = np.concatenate([g["p"][None], spread(g["p"], AUTO_BATCH - 1)])
+    p = torch.as_tensor(ps, device="cuda")
+    cfg = SolverConfig(rtol=1e-6, atol=1e-9, max_steps=2048,
+                       linear_solver="pallas")
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    res = auto_solve(lambda t, y: model.rhs(t, y, p), tuple(g["t_span"]),
+                     model.y0(p), torch.as_tensor(g["t_eval"],
+                                                  device="cuda"),
+                     config=cfg, jac=lambda t, y: model.rhs_jac(t, y, p),
+                     nonstiff_budget=256)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = launches_now()
+    status = res.status.cpu().numpy()
+    nlu = res.nlu.cpu().numpy()
+    err = rel_err(res.ys[0].cpu().numpy(), g["ys"])
+    print(f"[auto-mapk22] {card}: {int((status == 1).sum())}/{AUTO_BATCH} "
+          f"members status 1 in {wall:.2f} s; nsteps "
+          f"{res.nsteps.cpu().numpy().tolist()}; nlu {nlu.tolist()}; golden "
+          f"member error {err:.3e} (bound 1e-4); launches {launches}",
+          flush=True)
+    check(bool((status == 1).all()) and bool((nlu > 0).all()),
+          "auto-mapk22: every member DONE after a handoff")
+    check(err < 1e-4, f"auto-mapk22: golden error {err:.3e}")
+    check_k1_k2("auto-mapk22", launches, need_k2=False)
+    return launches
+
+
+def explicit_run(solver, name, ps, device, cfg, t_span=None, t_eval=None):
+    """``solver`` on a small model with its full jvp sensitivities."""
+    from tpusysbio_torch.model import library
+
+    build, t_end = EXPLICIT_MODELS[name]
+    model = getattr(library, build)(device=device)
+    t_span = t_span or (0.0, t_end)
+    t_eval = np.linspace(0.0, t_end, 21) if t_eval is None else t_eval
+    return model.simulate_sensitivities(ps, t_span, t_eval, solver=solver,
+                                        config=cfg, device=device)
+
+
+def phase_explicit(card):
+    """dopri5 and Adams at B=256 with full sensitivities at rtol=1e-6 on
+    Lotka-Volterra and the repressilator (bench/experiments/
+    adams_ensemble_bench.py), 2 members on the CPU; the golden fixtures at
+    tests/test_sens.py's config and bound."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+
+    cfg = SolverConfig(rtol=1e-6, atol=1e-9, max_steps=16384)
+    counters = ("status", "nsteps", "naccepted", "nrejected", "nfev")
+    walls = {}
+    gpu_lu.reset_launches()
+    for name, (build, _) in EXPLICIT_MODELS.items():
+        p_true = getattr(library, {"lotka": "LV_TRUE_PARAMS",
+                                   "repressilator":
+                                   "REPRESSILATOR_TRUE_PARAMS"}[name])
+        ps = spread(p_true, EXPLICIT_BATCH)
+        for solver in ("dopri5", "adams"):
+            t0 = time.perf_counter()
+            res = explicit_run(solver, name, ps, "cuda", cfg)
+            torch.cuda.synchronize()
+            wall = walls[name, solver] = time.perf_counter() - t0
+            status = res.status.cpu().numpy()
+            again = explicit_run(solver, name, ps[:2], "cpu", cfg)
+            same = all(np.array_equal(getattr(res, c)[:2].cpu().numpy(),
+                                      getattr(again, c).numpy())
+                       for c in counters)
+            ys_rel = rel_err(res.ys[:2].cpu().numpy(), again.ys.numpy())
+            print(f"[explicit] {card}: {solver} {name} B={EXPLICIT_BATCH}: "
+                  f"{int((status == 1).sum())} status 1 in {wall:.2f} s "
+                  f"({EXPLICIT_BATCH / wall:.1f} integrations/s), "
+                  f"mean_nsteps {res.nsteps.float().mean().item():.2f}, "
+                  f"mean nfev {res.nfev.float().mean().item():.1f}, nlu "
+                  f"max {int(res.nlu.max())}; 2 members on the CPU: "
+                  f"counters equal {same}, ys rel {ys_rel:.3e} (bound "
+                  f"1e-9)", flush=True)
+            check(bool((status == 1).all()), f"explicit {solver} {name}")
+            check(int(res.nlu.max()) == 0 and int(res.njev.max()) == 0,
+                  f"explicit {solver} {name}: factorized")
+            check(same and ys_rel <= 1e-9,
+                  f"explicit {solver} {name}: CPU counters {same}, ys "
+                  f"{ys_rel:.3e}")
+            check(bool(torch.isfinite(res.sens).all()),
+                  f"explicit {solver} {name}: sens")
+    launches, _ = launches_now()
+    check(sum(launches.values()) == 0, f"explicit: launched {launches}")
+    # the golden fixtures, tests/test_sens.py's config and bound
+    gcfg = SolverConfig(rtol=1e-8, atol=1e-11, max_steps=16384)
+    for name in EXPLICIT_MODELS:
+        g = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz"))
+        for solver in ("dopri5", "adams"):
+            res = explicit_run(solver, name, g["p"][None], "cuda", gcfg,
+                               tuple(g["t_span"]), g["t_eval"])
+            errs = {k: float(np.max(np.abs(getattr(res, k)[0].cpu().numpy()
+                                           - g[k]))
+                             / (1e-6 + np.max(np.abs(g[k]))))
+                    for k in ("ys", "sens")}
+            print(f"[explicit] golden {name} {solver}: status "
+                  f"{int(res.status[0])}, {int(res.nsteps[0])} steps, ys err "
+                  f"{errs['ys']:.3e}, sens err {errs['sens']:.3e} (bound "
+                  f"1e-5)", flush=True)
+            check(int(res.status[0]) == 1 and max(errs.values()) < 1e-5,
+                  f"explicit golden {name} {solver}: {errs}")
+    return walls
+
+
+def phase_multishoot(card, t_end=MS_T_END, windows=MS_WINDOWS,
+                     sweeps=MS_SWEEPS, state_bound=1e-5, floor=None):
+    """The repressilator ShootingProblem of bench/experiments/
+    multishoot_bench.py under 'pallas': a coarse serial init, ``sweeps``
+    Newton sweeps on the window states, against the serial BDF. Both runs
+    hold rtol 1e-6 locally, so their global gap grows with the horizon:
+    ``state_bound`` 1e-5 at the smoke's depth, 1e-4 at the bench's own
+    (T 600). There the windows are 37.5 long and the defects reach the
+    floor those integrations allow (~1e-4) in one sweep: with ``floor``
+    given, the defects must fall in the first sweep and stay below it,
+    instead of falling at every sweep."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.linalg import gpu_lu, lu
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.solvers import bdf_solve
+    from tpusysbio_torch.solvers.multishoot import (ShootingProblem,
+                                                    window_grid)
+
+    model = library.repressilator(device="cuda")
+    p = torch.as_tensor(library.REPRESSILATOR_TRUE_PARAMS, device="cuda")
+    cfg = SolverConfig(rtol=1e-6, atol=1e-9, max_steps=16384,
+                       linear_solver="pallas")
+    bounds = window_grid((0.0, t_end), windows, device="cuda")
+    t0 = time.perf_counter()
+    serial = bdf_solve(lambda t, y: model.rhs(t, y, p[None]), (0.0, t_end),
+                       model.y0(p[None]), bounds[1:], config=cfg)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    sp = ShootingProblem(model.rhs, (0.0, t_end), model.y0,
+                         n_windows=windows, n_params=4,
+                         config=SolverConfig(
+                             rtol=1e-6, atol=1e-9,
+                             max_steps=cfg.max_steps // windows * 4,
+                             linear_solver="pallas"))
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    zt = sp.init_z(p)[1:]
+    trace = []
+    for _ in range(sweeps):
+        d, _, Jz, status = sp.defects_and_jac(p, zt)
+        dz = lu.lu_solve(lu.lu_factor(Jz[None]), -d.reshape(1, -1))[0]
+        zt = zt + dz.reshape(zt.shape)
+        trace.append(float(d.abs().max()))
+        check(bool((status == 1).all()), f"multishoot: window statuses "
+              f"{status.tolist()}")
+    d, _, _, status = sp.defects_and_jac(p, zt)
+    torch.cuda.synchronize()
+    ms_s = time.perf_counter() - t0
+    launches, _ = launches_now()
+    trace.append(float(d.abs().max()))
+    ys = serial.ys[0]
+    err = float((zt - ys[:windows - 1]).abs().max() / ys.abs().max())
+    print(f"[multishoot] {card}: repressilator T={t_end}, K={windows}, "
+          f"{sweeps} sweeps: serial {serial_s:.2f} s ({int(serial.nsteps[0])}"
+          f" steps), shooting {ms_s:.2f} s; defects by sweep {trace}; window"
+          f" states against the serial run {err:.3e} (bound {state_bound}); "
+          f"launches {launches}", flush=True)
+    if floor is None:
+        check(all(b < a for a, b in zip(trace, trace[1:])),
+              f"multishoot: the defects did not fall every sweep: {trace}")
+    else:
+        check(trace[1] < trace[0] and max(trace[1:]) <= floor,
+              f"multishoot: the defects above the floor {floor}: {trace}")
+    check(err <= state_bound, f"multishoot: window states {err:.3e}")
+    check_k1_k2("multishoot", launches, need_k2=False)
+    return launches
+
+
+def mapk_events(c_rise, c_term):
+    """Two events on doubly phosphorylated MAPK (KPP) with per-member
+    thresholds (B,): KPP − c_rise rising through 0 (non-terminal), and
+    c_term − KPP falling through 0 (terminal)."""
+    import torch
+
+    from tpusysbio_torch.solvers import EventSpec
+
+    def fn(t, y):
+        kpp = y[:, 10]
+        return torch.stack([kpp - c_rise, c_term - kpp], dim=1)
+
+    return EventSpec(fn=fn, direction=(1, -1), terminal=(False, True))
+
+
+def scipy_mapk(p, t_end, events=None, t_eval=None, dense=False):
+    """SciPy's BDF at rtol=1e-10 on one MAPK-22 member (the CPU model's
+    RHS and closed-form Jacobian)."""
+    import torch
+    from scipy.integrate import solve_ivp
+
+    from tpusysbio_torch.model import library
+
+    m = library.mapk_huang_ferrell(device="cpu")
+    pt = torch.as_tensor(p)[None]
+
+    def f(t, y):
+        return m.rhs(torch.full((1,), t, dtype=torch.float64),
+                     torch.as_tensor(y)[None], pt)[0].numpy()
+
+    def jac(t, y):
+        return m.rhs_jac(torch.full((1,), t, dtype=torch.float64),
+                         torch.as_tensor(y)[None], pt)[0].numpy()
+
+    sol = solve_ivp(f, (0.0, t_end), m.y0(pt)[0].numpy(), method="BDF",
+                    rtol=1e-10, atol=1e-13, jac=jac, events=events,
+                    t_eval=t_eval, dense_output=dense)
+    check(sol.success, f"SciPy: {sol.message}")
+    return sol
+
+
+def phase_events_mapk22(card):
+    """``OdeModel.simulate(events=..., dense_output=True)`` on MAPK-22 at
+    64 members, rtol 1e-8, 'pallas', against SciPy for 2 members (the
+    dense export locates each member's terminal step); then
+    ``simulate_sensitivities(dense_output=True)`` at 16 members and
+    ``OdeSolution`` against the grid and SciPy's dense output."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.solvers import OdeSolution
+
+    model = library.mapk_huang_ferrell(device="cuda")
+    ps = spread(library.mapk_true_params(device="cpu").numpy(),
+                EVENTS_BATCH)
+    rng = np.random.default_rng(8)
+    c_rise = rng.uniform(0.2, 0.4, EVENTS_BATCH)
+    c_term = rng.uniform(0.6, 0.85, EVENTS_BATCH)
+    ev = mapk_events(torch.as_tensor(c_rise, device="cuda"),
+                     torch.as_tensor(c_term, device="cuda"))
+    cfg = SolverConfig(rtol=1e-8, atol=1e-11, max_steps=4096,
+                       linear_solver="pallas")
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    res = model.simulate(ps, (0.0, 100.0), EVENTS_T, config=cfg, events=ev,
+                         dense_output=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = launches_now()
+    status = res.status.cpu().numpy()
+    counts = res.event_count.cpu().numpy()
+    print(f"[events-mapk22] {card}: {EVENTS_BATCH} members in {wall:.2f} "
+          f"s: statuses {np.unique(status, return_counts=True)}, event "
+          f"counts (rise, term) {np.unique(counts, axis=0).tolist()}, "
+          f"t_final {float(res.t_final.min()):.3f}-"
+          f"{float(res.t_final.max()):.3f}, mean_nsteps "
+          f"{res.nsteps.float().mean().item():.2f}; launches {launches}",
+          flush=True)
+    check(bool((status == 7).all()), "events-mapk22: a member did not stop")
+    check(bool((counts == 1).all()), "events-mapk22: event counts")
+    check(bool((res.t_final > 15.0).all() & (res.t_final < 35.0).all()),
+          "events-mapk22: a terminal event outside the fine grid")
+    check_k1_k2("events-mapk22", launches)
+
+    worst = 0.0
+    for i in range(2):
+        def g_rise(t, y, i=i):
+            return y[10] - c_rise[i]
+
+        def g_term(t, y, i=i):
+            return c_term[i] - y[10]
+
+        g_rise.direction, g_term.direction = 1, -1
+        g_term.terminal = True
+        sol = scipy_mapk(ps[i], 100.0, events=(g_rise, g_term), dense=True)
+        t_ev = np.array([sol.t_events[0][0], sol.t_events[1][0]])
+        y_ev = np.stack([sol.y_events[0][0], sol.y_events[1][0]])
+        got_t = res.event_t[i, :, 0].cpu().numpy()
+        got_y = res.event_y[i, :, 0].cpu().numpy()
+        t_rel = float(np.max(np.abs(got_t - t_ev) / t_ev))
+        y_rel = rel_err(got_y, y_ev)
+        t_stop = float(res.t_final[i])
+        filled = EVENTS_T <= t_stop
+        ys_i = res.ys[i].cpu().numpy()
+        fill = rel_err(ys_i[filled], sol.sol(EVENTS_T[filled]).T)
+        # the terminal step starts at the end of the accepted step before
+        # it, in the dense export
+        nacc = int(res.naccepted[i])
+        t_prev = float(res.seg_t[i, nacc - 2])
+        last = (EVENTS_T > t_prev) & filled
+        term = rel_err(ys_i[last], sol.sol(EVENTS_T[last]).T)
+        worst = max(worst, t_rel, y_rel, fill, term)
+        print(f"[events-mapk22] member {i} against SciPy (rtol 1e-10): "
+              f"event times {got_t.tolist()} vs {t_ev.tolist()} (rel "
+              f"{t_rel:.3e}), states rel {y_rel:.3e}; the {int(filled.sum())}"
+              f" filled t_eval points rel {fill:.3e}, the {int(last.sum())} "
+              f"of the terminal step ({t_prev:.6f}, {t_stop:.6f}] rel "
+              f"{term:.3e} (bound 1e-6)", flush=True)
+        check(int(last.sum()) > 0, "events-mapk22: no t_eval point in the "
+              "terminal step")
+    check(worst <= 1e-6, f"events-mapk22: against SciPy {worst:.3e}")
+
+    # dense output: OdeSolution at the grid and off it
+    t_eval = np.linspace(0.0, 100.0, 41)
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    dres = model.simulate_sensitivities(ps[:DENSE_BATCH], (0.0, 100.0),
+                                        t_eval, config=cfg,
+                                        dense_output=True, device="cuda")
+    sol = OdeSolution(dres)
+    grid = sol(t_eval)
+    grid_s = sol.sens(t_eval)
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t0
+    l_dense, _ = launches_now()
+    for k in l_dense:
+        launches[k] += l_dense[k]
+    g_rel = rel_err(grid[:, 1:].cpu().numpy(), dres.ys[:, 1:].cpu().numpy())
+    s_rel = rel_err(grid_s[:, 1:].cpu().numpy(),
+                    dres.sens[:, 1:].cpu().numpy())
+    ts = np.sort(np.random.default_rng(0).uniform(0.01, 99.99, 200))
+    off = sol(ts).cpu().numpy()
+    off_rel = 0.0
+    for i in range(2):
+        ref = scipy_mapk(ps[i], 100.0, t_eval=ts)
+        off_rel = max(off_rel, rel_err(off[i], ref.y.T))
+    print(f"[events-mapk22] dense output, {DENSE_BATCH} members with 30 "
+          f"sensitivities in {dwall:.2f} s ({int(dres.naccepted.max())} "
+          f"steps recorded at most): OdeSolution at t_eval against ys rel "
+          f"{g_rel:.3e}, sens rel {s_rel:.3e} (bound 1e-10); at 200 off-grid"
+          f" times against SciPy (2 members) rel {off_rel:.3e} (bound 1e-6)"
+          f"; launches {l_dense}", flush=True)
+    check(bool((dres.status == 1).all()), "events-mapk22: dense statuses")
+    check(g_rel <= 1e-10 and s_rel <= 1e-10, "events-mapk22: OdeSolution "
+          "at the grid")
+    check(off_rel <= 1e-6, f"events-mapk22: off-grid {off_rel:.3e}")
+    return launches
+
+
+def phase_backward_mm3(card):
+    """MM-3 with sensitivities integrated backward over BACKWARD_SPAN at 64
+    members from each member's state at t=10 (a forward run on the card),
+    against SciPy's decreasing-t_span BDF and the CPU."""
+    import dataclasses
+
+    import torch
+    from scipy.integrate import solve_ivp
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.model import library
+
+    model = library.michaelis_menten(device="cuda")
+    ps = spread(library.MM_TRUE_PARAMS, BACKWARD_BATCH)
+    t1, t0_ = BACKWARD_SPAN
+    cfg = SolverConfig(rtol=1e-10, atol=1e-13, max_steps=8192)
+    fwd = model.simulate(ps, (0.0, t1), [0.0, t1], config=cfg,
+                         device="cuda")
+    check(bool((fwd.status == 1).all()), "backward-mm3: forward run")
+    start = fwd.ys[:, -1].contiguous()
+
+    def start_of(model_, y):
+        # the start is data, not a function of p: zero sensitivity
+        return dataclasses.replace(
+            model_, y0=lambda pp: (y if pp.shape[0] == y.shape[0]
+                                   else y[:1].expand(pp.shape[0], -1)))
+
+    t_back = np.linspace(t1, t0_, 11)
+    bcfg = SolverConfig(rtol=1e-8, atol=1e-11, max_steps=8192)
+    t0 = time.perf_counter()
+    res = start_of(model, start).simulate_sensitivities(
+        ps, BACKWARD_SPAN, t_back, config=bcfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu_model = library.michaelis_menten(device="cpu")
+    again = start_of(cpu_model, start[:2].cpu()).simulate_sensitivities(
+        ps[:2], BACKWARD_SPAN, t_back, config=bcfg, device="cpu")
+    worst = 0.0
+    for i in range(2):
+        pt = torch.as_tensor(ps[i])[None]
+
+        def f(t, y):
+            return cpu_model.rhs(torch.full((1,), t, dtype=torch.float64),
+                                 torch.as_tensor(y)[None], pt)[0].numpy()
+
+        sol = solve_ivp(f, BACKWARD_SPAN, start[i].cpu().numpy(),
+                        method="BDF", t_eval=t_back, rtol=1e-10, atol=1e-13)
+        check(sol.success, f"backward-mm3: SciPy {sol.message}")
+        worst = max(worst, rel_err(res.ys[i].cpu().numpy(), sol.y.T))
+    ys_cpu = rel_err(res.ys[:2].cpu().numpy(), again.ys.numpy())
+    s_cpu = rel_err(res.sens[:2].cpu().numpy(), again.sens.numpy())
+    print(f"[backward-mm3] {card}: {BACKWARD_BATCH} members with 4 "
+          f"sensitivities over {BACKWARD_SPAN} in {wall:.2f} s, statuses 1: "
+          f"{int((res.status == 1).sum())}, t_final "
+          f"{float(res.t_final.min())}-{float(res.t_final.max())}, "
+          f"mean_nsteps {res.nsteps.float().mean().item():.2f}; 2 members "
+          f"against SciPy rel {worst:.3e} (bound 1e-6); against the CPU ys "
+          f"{ys_cpu:.3e}, sens {s_cpu:.3e} (bound 1e-7)", flush=True)
+    check(bool((res.status == 1).all()), "backward-mm3: statuses")
+    check(bool((res.t_final == t0_).all()), "backward-mm3: t_final")
+    check(worst <= 1e-6, f"backward-mm3: against SciPy {worst:.3e}")
+    check(ys_cpu <= 1e-7 and s_cpu <= 1e-7,
+          f"backward-mm3: CPU ys {ys_cpu:.3e}, sens {s_cpu:.3e}")
+
+
+def phase_cli_solvers(card):
+    """``cli.main(["simulate", "--model", "mm3", "--solver", s, ...])`` for
+    the five new solvers and ``sens --solver radau``, against the MM-3
+    golden (its t_eval: --t-end 10 --n-times 21)."""
+    from tpusysbio_torch import cli
+
+    g = np.load(os.path.join(ROOT, "tests", "golden", "mm3.npz"))
+    base = ["--model", "mm3", "--t-end", "10", "--n-times", "21"]
+
+    def golden_err(ys):
+        return float(np.max(np.abs(ys - g["ys"]) / (1e-7 + np.abs(g["ys"]))))
+
+    for solver, bound in CLI_SOLVER_BOUND.items():
+        t0 = time.perf_counter()
+        out = cli.main(["simulate"] + base + ["--solver", solver])
+        err = golden_err(out["ys"])
+        print(f"[cli-solvers] {card}: simulate --solver {solver}: "
+              f"{out['record']} in {time.perf_counter() - t0:.2f} s; golden "
+              f"error {err:.3e} (bound {bound})", flush=True)
+        check(out["record"]["status"] == 1 and np.isfinite(out["ys"]).all()
+              and err < bound, f"cli-solvers {solver}: {err:.3e}")
+    t0 = time.perf_counter()
+    out = cli.main(["sens"] + base + ["--solver", "radau"])
+    err = golden_err(out["ys"])
+    s_err = float(np.max(np.abs(out["sens"] - g["sens"]))
+                  / (1e-6 + np.max(np.abs(g["sens"]))))
+    print(f"[cli-solvers] sens --solver radau: {out['record']} in "
+          f"{time.perf_counter() - t0:.2f} s; golden ys error {err:.3e} "
+          f"(bound 1e-4), sens {s_err:.3e} (bound 1e-5)", flush=True)
+    check(out["record"]["status"] == 1 and err < 1e-4 and s_err < 1e-5
+          and np.isfinite(out["sens"]).all(), "cli-solvers sens radau")
+
+
+def embedding_gap(got, ref, a):
+    """Per matrix: the relative gap of two f32 inverses of ``a``, its bound
+    max(1e-4, n·eps32·κ∞(a)) and κ∞(a) itself (numpy, (B,))."""
+    import torch
+
+    n = a.shape[-1]
+    inv = torch.linalg.inv(a)
+    kappa = (a.abs().sum(-1).amax(-1) * inv.abs().sum(-1).amax(-1))
+    rel = ((got - ref).abs().amax((-2, -1))
+           / ref.abs().amax((-2, -1)))
+    eps32 = float(torch.finfo(torch.float32).eps)
+    bound = torch.clamp(n * eps32 * kappa, min=1e-4)
+    return (rel.double().cpu().numpy(), bound.cpu().numpy(),
+            kappa.cpu().numpy())
+
+
+def phase_n44_kernels(rng):
+    """K1 and K2 against their plain versions on Radau's real embeddings
+    of MAPK-22 at 2n=44 and B=64, timed beside torch.linalg and the
+    bytes bound."""
+    import torch
+
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.solvers.radau import newton_matrices
+
+    B, n = RADAU_BATCH, 44
+    model = library.mapk_huang_ferrell(device="cuda")
+    p = library.mapk_true_params(device="cuda")[None] * torch.as_tensor(
+        np.exp(rng.normal(scale=0.1, size=(B, 30))), device="cuda")
+    y = torch.as_tensor(rng.uniform(0.0, 1.2, size=(B, 22)), device="cuda")
+    J = model.rhs_jac(torch.zeros(B, dtype=torch.float64, device="cuda"),
+                      y, p)
+    h = torch.as_tensor(10.0 ** rng.uniform(-3.0, np.log10(5.0), B),
+                        device="cuda")
+    a = newton_matrices(J, h)[1].contiguous()
+    a32 = a.to(torch.float32).contiguous()
+    got = gpu_lu.gj_inverse_f32(a32)
+    ref = gpu_lu.gj_inverse_f32_plain(a32)
+    torch.cuda.synchronize()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    # the kernel and its plain version round in another order, so per
+    # matrix they part by up to ~n·eps32·κ∞; the large steps of a Radau run
+    # give condition numbers of 1e3 and more, where that passes 1e-4
+    rel_m, bound_m, kappa = embedding_gap(got, ref, a)
+    check(bool(torch.isfinite(got).all())
+          and bool((rel_m <= bound_m).all()),
+          f"K1-n44: rel {rel:.3e}; per matrix {rel_m.max():.3e} against "
+          f"max(1e-4, n eps32 kappa) (kappa up to {kappa.max():.3e})")
+    k1 = dict(max_abs_err=float((got - ref).abs().max()),
+              ms=cuda_ms(lambda: gpu_lu.gj_inverse_f32(a32), reps=200),
+              plain_ms=cuda_ms(lambda: gpu_lu.gj_inverse_f32_plain(a32),
+                               reps=5),
+              library_ms=cuda_ms(lambda: torch.linalg.inv(a32), reps=200))
+    k1["bound_ms"], k1["bound_by"] = bound_ms(
+        2 * B * n * n * 4, B * n * (n + 2 * n * (n - 1)) / F32_FLOPS)
+    b = torch.as_tensor(rng.standard_normal((B, n)), device="cuda")
+    x32 = gpu_lu.inverse(a32)
+    got = gpu_lu.refine_solve(x32, a, b)
+    ref = gpu_lu.refine_solve_plain(x32, a, b)
+    sol = torch.linalg.solve(a, b)
+    torch.cuda.synchronize()
+    rel_plain = float((got - ref).abs().max() / ref.abs().max())
+    rel_lib = float(((got - sol).abs() / sol.abs().clamp_min(1e-30)).max())
+    check(rel_plain <= 1e-12 and rel_lib < 1e-9,
+          f"K2-n44: rel vs plain {rel_plain:.3e}, vs solve {rel_lib:.3e}")
+    k2 = dict(max_abs_err=float((got - ref).abs().max()),
+              ms=cuda_ms(lambda: gpu_lu.refine_solve(x32, a, b), reps=200),
+              plain_ms=cuda_ms(lambda: gpu_lu.refine_solve_plain(x32, a, b),
+                               reps=50),
+              library_ms=cuda_ms(lambda: torch.linalg.solve(a, b),
+                                 reps=200))
+    k2["bound_ms"], k2["bound_by"] = bound_ms(
+        B * (n * n * 4 + n * n * 8 + 2 * n * 8),
+        B * 2 * n * n * (4 / F32_FLOPS + 3 / F64_FLOPS))
+    print(f"[K1-n44] per matrix the gap to the plain version is at most "
+          f"{float(np.max(rel_m / bound_m)):.3f} of max(1e-4, n eps32 "
+          f"kappa); kappa {float(kappa.min()):.3e}-{float(kappa.max()):.3e}"
+          f", the largest gap {float(rel_m.max()):.3e}", flush=True)
+    for tag, k, r, lib in (("K1-n44", k1, rel, "torch.linalg.inv"),
+                           ("K2-n44", k2, rel_plain, "torch.linalg.solve")):
+        print(f"[{tag}] Radau's 2n=44 embeddings of MAPK-22, B={B}: max abs "
+              f"err vs plain {k['max_abs_err']:.3e} (rel {r:.3e}); kernel "
+              f"{k['ms']:.4f} ms queued, plain {k['plain_ms']:.4f} ms, {lib} "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.7f} ms "
+              f"({k['bound_by']})", flush=True)
+    print(f"[K2-n44] vs torch.linalg.solve rel {rel_lib:.3e} (bound 1e-9)",
+          flush=True)
+    return k1, k2
+
+
+def phase_other_steppers(card, problem, rng):
+    """Every phase of the other steppers and channels; their launches by
+    path, and K1/K2 at n=44."""
+    launches, laps = {}, Laps()
+    launches["radau-mapk22"], _ = phase_radau_mapk22(card)
+    laps("radau-mapk22")
+    launches["rosenbrock-fit"] = phase_rosenbrock_fit(card, problem)
+    laps("rosenbrock-fit")
+    launches["auto-mapk22"] = phase_auto_mapk22(card)
+    laps("auto-mapk22")
+    phase_explicit(card)
+    laps("explicit")
+    launches["multishoot"] = phase_multishoot(card)
+    laps("multishoot")
+    launches["events-mapk22"] = phase_events_mapk22(card)
+    laps("events-mapk22")
+    phase_backward_mm3(card)
+    laps("backward-mm3")
+    phase_cli_solvers(card)
+    laps("cli-solvers")
+    n44 = phase_n44_kernels(rng)
+    laps("K1-n44/K2-n44")
+    laps.report("the other steppers")
+    return launches, n44
+
+
 def jakstat_screen():
     """The screening ``Project`` of ``configs/jakstat.yaml`` and its 256
     starts, as ``cli.py`` builds them."""
@@ -2308,30 +3063,50 @@ def main():
     # every phase names the layout it runs; none takes it from the caller's
     # environment
     gpu_lu._LAYOUT = "minor"
+    laps = Laps()
     card = phase_device()
     phase_build()
+    laps("device, build")
     model = library.mapk_huang_ferrell(device="cuda")
     rng = np.random.default_rng(1234)
     kernels = [phase_k1(model, rng), phase_k2(model, rng),
                phase_k3(model, rng)]
     phase_floor()
+    laps("K1, K2, K3, floor")
     l_main, run = phase_main_path()
+    laps("main")
     (l_fit, l_screen, l_polish), problem, fit_top = phase_fit()
+    laps("fit")
     l_major = phase_fit_major(problem)
+    laps("fit-major")
     l_egfr_sens, egfr = phase_egfr_sens(card)
+    laps("egfr-sens")
     l_egfr_fit = phase_egfr_fit(card, egfr)
+    laps("egfr-fit")
     l_egfr_major = phase_egfr_major(egfr)
+    laps("egfr-major")
     phase_golden_small(card)
+    laps("golden-small")
     k1_small, k2_small = phase_small_kernels(rng)
     kernels[0]["small_n"], kernels[1]["small_n"] = k1_small, k2_small
     kernels[2]["small_n"] = {}
+    laps("K1-small, K2-small")
     l_small = phase_cli_paths(card, CLI_DEPTH, ENSEMBLE_ITERS,
                               PROFILE_FIT_ITERS)
+    laps("cli-*, jakstat-ensemble, profile-mm3")
     l_small["pulse"] = phase_pulse(card, PULSE_FIT_ITERS)
+    laps("pulse")
     l_small["preeq"] = phase_preeq(card)
+    laps("preeq")
     l_small["fit-trf"] = phase_fit_trf(card, problem, fit_top, FIT_TRF_ITERS)
+    laps("fit-trf")
     l_small["sample-mm3"] = phase_sample_mm3(card, SAMPLE_STEPS, SAMPLE_BURN,
                                              SAMPLE_FIT_ITERS)
+    laps("sample-mm3")
+    l_steppers, (k1_n44, k2_n44) = phase_other_steppers(card, problem, rng)
+    l_small.update(l_steppers)
+    laps("the other steppers")
+    laps.report("the whole script")
     if "--profile" in sys.argv[1:]:
         phase_profile(run, "one main-path batch")
         screen, starts = problem[1], problem[3]
@@ -2365,7 +3140,7 @@ def main():
         {k: v for k, v in beside["max_abs_err_by_case"].items()
          if "egfr" in k})
     for key in ("ms_by_shape", "bound_ms_by_shape", "library_ms_by_shape"):
-        kernels[0][key] = beside[key]
+        kernels[0][key] = dict(beside[key])
         kernels[1][key] = {}
     # the Gauss-Jordan kernel's share of one [egfr-sens] batch
     egfr_ms = sum(l_egfr_sens["gj_inverse_f32"] / 2 * ms
@@ -2374,6 +3149,13 @@ def main():
           f"{l_egfr_sens['gj_inverse_f32'] // 2} x "
           f"({' + '.join(f'{v:.4f}' for v in kernels[0]['ms_by_shape'].values())}"
           f") ms = {egfr_ms / 1e3:.4f} s per batch", flush=True)
+    # K1 and K2 on Radau's 2n=44 embeddings of MAPK-22
+    shape = f"({RADAU_BATCH}, 44, 44) radau"
+    for kern, got in ((kernels[0], k1_n44), (kernels[1], k2_n44)):
+        kern["ms_by_shape"][shape] = got["ms"]
+        kern["bound_ms_by_shape"][shape] = got["bound_ms"]
+        kern["library_ms_by_shape"][shape] = got["library_ms"]
+        kern["max_abs_err_by_case"]["n44 radau"] = got["max_abs_err"]
     for kern in kernels:
         name = kern["name"]
         by_path = {"main": l_main[name], "fit": l_fit[name],

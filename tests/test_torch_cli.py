@@ -373,5 +373,13 @@ def test_cli_fit_example_at_a_cut_depth(capsys):
     (["bench"], "15"),
 ])
 def test_cli_unported_paths_raise(argv, item):
+    """``--plot`` (item 14) and ``bench`` (item 15) still raise. The
+    steppers of item 12 are ported since: their cases run to status 1
+    (tests/test_torch_cli_solvers.py holds them against the JAX CLI)."""
+    if item == "12":
+        out = cli.main(["--cpu"] + argv)
+        assert out["record"]["status"] == 1
+        assert np.isfinite(out["ys"]).all()
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         cli.main(["--cpu"] + argv)

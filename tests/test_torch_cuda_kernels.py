@@ -348,3 +348,55 @@ def test_scale_factor_ensemble_is_deterministic(cuda_device):
     assert bool(torch.isfinite(a.residuals).all())
     for field in ("residuals", "jacobian", "scale", "cost"):
         assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+def radau_embeddings(B, device, seed=44):
+    """The 2n = 44 real embeddings of the complex Radau Newton matrix of
+    MAPK-22: Jacobians at random states and parameters (log-normal, scale
+    0.1), step sizes log-uniform in [1e-3, 5] (the range of a MAPK-22 run
+    at rtol=1e-6)."""
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.solvers.radau import newton_matrices
+
+    rng = np.random.default_rng(seed)
+    model = library.mapk_huang_ferrell(device=device)
+    p = library.mapk_true_params(device=device)[None] * torch.as_tensor(
+        np.exp(rng.normal(scale=0.1, size=(B, 30))), device=device)
+    y = torch.as_tensor(rng.uniform(0.0, 1.2, size=(B, 22)), device=device)
+    J = model.rhs_jac(torch.zeros(B, dtype=torch.float64, device=device),
+                      y, p)
+    h = torch.as_tensor(10.0 ** rng.uniform(-3.0, np.log10(5.0), B),
+                        device=device)
+    return newton_matrices(J, h)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 256])
+def test_radau_embedding_n44(cuda_device, monkeypatch, B):
+    """K1 and K2 against their plain versions on Radau's n=44 embeddings:
+    per matrix the f32 inverse within max(1e-4, n·eps32·κ∞) of the plain
+    one (the two round in another order, and the large steps give κ∞ of
+    1e3 and more), the refined f64 solve within 1e-12 of its plain
+    version and 1e-9 of ``torch.linalg.solve``."""
+    a = radau_embeddings(B, cuda_device)
+    assert a.shape == (B, 44, 44)
+    a32 = a.to(torch.float32).contiguous()
+    x32 = _gj(monkeypatch, "minor", a32)
+    ref = gpu_lu.gj_inverse_f32_plain(a32)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x32).all())
+    inv = torch.linalg.inv(a)
+    kappa = a.abs().sum(-1).amax(-1) * inv.abs().sum(-1).amax(-1)
+    gap = (x32 - ref).abs().amax((-2, -1)) / ref.abs().amax((-2, -1))
+    bound = torch.clamp(44 * torch.finfo(torch.float32).eps * kappa,
+                        min=1e-4)
+    assert bool((gap.double() <= bound).all())
+    b = torch.as_tensor(np.random.default_rng(B).standard_normal((B, 44)),
+                        device=cuda_device)
+    got = gpu_lu.refine_solve(x32, a.contiguous(), b)
+    plain = gpu_lu.refine_solve_plain(x32, a, b)
+    sol = torch.linalg.solve(a, b)
+    torch.cuda.synchronize()
+    assert float((got - plain).abs().max() / plain.abs().max()) <= 1e-12
+    assert float(((got - sol).abs() / sol.abs().clamp_min(1e-30)).max()) \
+        < 1e-9

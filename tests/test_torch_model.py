@@ -109,9 +109,21 @@ def test_params_from_numpy():
 
 
 def test_backward_span_and_events_are_queued():
+    """Both are ported since: a decreasing ``t_span`` integrates backward
+    (``t_final`` at its end) and ``events`` fills the event buffers;
+    together they raise ``ValueError``, as in the reference
+    (tests/test_torch_backward.py and test_torch_events_rootfind.py hold
+    them against the reference)."""
+    from tpusysbio_torch.solvers import EventSpec
+
+    lv = library.lotka_volterra(device="cpu")
+    back = lv.simulate(np.asarray(library.LV_TRUE_PARAMS)[None], (1.0, 0.0),
+                       [1.0, 0.0], device="cpu")
+    assert int(back.status[0]) == 1 and float(back.t_final[0]) == 0.0
     tm = library.mapk_huang_ferrell(device="cpu")
     p = library.mapk_true_params(device="cpu")[None]
-    with pytest.raises(NotImplementedError):
-        tm.simulate(p, (10.0, 0.0), [10.0, 0.0], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.simulate(p, (0.0, 1.0), [1.0], events=object(), device="cpu")
+    ev = EventSpec(fn=lambda t, y: y[:, :1] - 1e9)
+    res = tm.simulate(p, (0.0, 1.0), [1.0], events=ev, device="cpu")
+    assert int(res.status[0]) == 1 and int(res.event_count[0, 0]) == 0
+    with pytest.raises(ValueError, match="backward"):
+        tm.simulate(p, (1.0, 0.0), [1.0, 0.0], events=ev, device="cpu")

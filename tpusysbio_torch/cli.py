@@ -28,7 +28,7 @@ Differences from the reference:
   ``--seed`` (its walkers start from the reference's numpy ball, so they
   equal the JAX CLI's; the chains differ);
 - not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-  item: ``--solver`` other than ``bdf``, ``--plot`` and ``bench``.
+  item: ``--plot`` and ``bench``.
 """
 
 from __future__ import annotations
@@ -125,8 +125,6 @@ def _report(res):
 def _integrate(args, with_sens: bool):
     from tpusysbio_torch.config import SolverConfig
 
-    if args.solver != "bdf":
-        _unported(f"--solver {args.solver}", "12")
     dev = _device(args)
     build, p_true = _models()[args.model]
     model = build(device=dev)
@@ -472,8 +470,7 @@ def main(argv=None):
         p.add_argument("--model", default="mm3", choices=_MODEL_NAMES)
         p.add_argument("--solver", default="bdf",
                        choices=["auto", "adams", "bdf", "radau", "dopri5",
-                                "rosenbrock"],
-                       help="only bdf is ported")
+                                "rosenbrock"])
         p.add_argument("--t-end", type=float, default=10.0)
         p.add_argument("--n-times", type=int, default=21)
         p.add_argument("--rtol", type=float, default=1e-6)

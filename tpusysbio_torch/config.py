@@ -54,7 +54,8 @@ class SolverConfig:
     # Dense-output interpolation correction in f32 on top of the exact
     # D[0] anchor.
     dense_f32: bool = False
-    # Dense-output windowing (0 = off; not ported yet: raises otherwise).
+    # Dense-output windowing (0 = off): the BDF stepper interpolates only
+    # a window of the t_eval grid per step and caps the step to keep it.
     dense_window: int = 0
     # Raise on a non-finite RHS at the initial condition.
     debug_checks: bool = False

@@ -35,8 +35,21 @@ order logic stay f64.
 Each member has its own interval and output grid: ``t_span`` ends may be
 floats or (B,) tensors, ``t_eval`` is (T,) or (B, T).
 
-Not ported yet (raise ``NotImplementedError``): ``events``,
-``dense_export`` and ``dense_window``.
+Channels beside ``t_eval``:
+
+- ``events`` (``common.EventSpec``): sign changes of ``fn`` across each
+  accepted step, roots bisected on the step's interpolant for the batch
+  when any member fired, (B, E, capacity) buffers, and a terminal stop.
+  The ``t_eval`` points of a terminal step are filled from the step's own
+  polynomial up to the event time, and only then is the anchor row
+  rewritten to the state at the event. The reference fills them after the
+  rewrite, which shifts the polynomial and puts those points off by the
+  size of the step's last correction; the port does not copy that.
+- ``dense_export``: each accepted step's interpolant (``t_new``, ``h``,
+  order, ``D[:MAX_ORDER+1]``) into (B, max_steps, ...) buffers for
+  ``solvers.dense.OdeSolution``; the buffers are written in place.
+- ``config.dense_window``: the step is capped at the (window-1)-th next
+  ``t_eval`` point and only that window of the grid is interpolated.
 """
 
 from __future__ import annotations
@@ -49,12 +62,12 @@ from tpusysbio_torch.config import SolverConfig
 from tpusysbio_torch.linalg import make_linear_solver
 from tpusysbio_torch.solvers import common
 from tpusysbio_torch.solvers.common import (
-    STATUS_DONE,
-    STATUS_MAX_STEPS,
+    STATUS_EVENT,
     STATUS_RUNNING,
-    STATUS_TOO_SMALL_STEP,
     IntegrateResult,
+    bcast,
     rms_norm,
+    where_members,
 )
 
 MAX_ORDER = 5
@@ -122,19 +135,6 @@ def _wsum(w, D):
     return out
 
 
-def _bcast(mask, x):
-    return mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
-
-
-def _where(mask, new, old):
-    """Per-member ``torch.where`` over tensors, tuples and dicts."""
-    if isinstance(new, dict):
-        return {k: _where(mask, new[k], old[k]) for k in new}
-    if isinstance(new, (tuple, list)):
-        return type(new)(_where(mask, a, b) for a, b in zip(new, old))
-    if new is None:
-        return None
-    return torch.where(_bcast(mask, new), new, old)
 
 
 def bdf_solve(
@@ -146,7 +146,7 @@ def bdf_solve(
     sens_rhs: Optional[Callable] = None,
     s0: Optional[torch.Tensor] = None,
     jac: Optional[Callable] = None,
-    events=None,
+    events: Optional[common.EventSpec] = None,
     dense_export: bool = False,
 ) -> IntegrateResult:
     """Integrate ``dy/dt = f(t, y)`` for a batch of members, forward.
@@ -164,39 +164,27 @@ def bdf_solve(
         RHS; requires ``s0`` (B, n, m).
       jac: optional state Jacobian ``(t, y) -> (B, n, n)``; forward-mode
         AD of ``f`` otherwise.
+      events: optional ``common.EventSpec``; fills ``event_t``,
+        ``event_y`` and ``event_count``, and a terminal event stops its
+        member with ``STATUS_EVENT``.
+      dense_export: record each accepted step's interpolant into the
+        result's ``seg_*`` buffers (B × max_steps × (MAX_ORDER+1) × n ×
+        (1+m) values) for ``solvers.dense.OdeSolution``.
 
     Returns an ``IntegrateResult`` with ``ys`` (B, T, n) and ``sens``
     (B, T, n, m).
     """
-    if events is not None or dense_export:
-        raise NotImplementedError(
-            "bdf_solve: events and dense_export are not ported yet")
     dtype = y0.dtype
     dev = y0.device
     B, n = y0.shape
-    t_eval = torch.as_tensor(t_eval, dtype=dtype, device=dev)
-    if t_eval.ndim == 1:
-        t_eval = t_eval[None, :].expand(B, -1)
-    if t_eval.ndim != 2 or t_eval.shape[0] != B:
-        raise ValueError(f"t_eval must be (T,) or ({B}, T); got "
-                         f"{tuple(t_eval.shape)}")
+    t0, t_bound, t_eval = common.prepare_times(t_span, y0, t_eval)
     T = t_eval.shape[1]
-    if 0 < int(config.dense_window) < T:
-        raise NotImplementedError(
-            "bdf_solve: dense_window is not ported yet")
+    # windowed dense output, active only when the window is a strict
+    # subset of the grid
+    dw = int(config.dense_window)
+    dw = dw if 0 < dw < T else 0
+    t_eval_c = t_eval.contiguous() if dw else None
     kw = dict(dtype=dtype, device=dev)
-
-    def member_times(x):
-        x = torch.as_tensor(x, **kw)
-        if x.ndim == 0:
-            return x.expand(B).clone()
-        if tuple(x.shape) != (B,):
-            raise ValueError(f"t_span ends must be floats or ({B},) "
-                             f"tensors; got {tuple(x.shape)}")
-        return x
-
-    t0 = member_times(t_span[0])
-    t_bound = member_times(t_span[1])
 
     if sens_rhs is not None:
         if s0 is None:
@@ -299,7 +287,7 @@ def bdf_solve(
         D = torch.zeros((B, D_ROWS) + Y0p.shape[1:], dtype=Y0p.dtype,
                         device=dev)
         D[:, 0] = Y0p
-        D[:, 1] = F0p * _bcast(h0.to(Y0p.dtype), F0p)
+        D[:, 1] = F0p * bcast(h0.to(Y0p.dtype), F0p)
         return D
 
     at_t0 = (t_eval == t0[:, None])[:, :, None, None]
@@ -324,6 +312,37 @@ def bdf_solve(
         njev=torch.ones(B, **i32), nlu=torch.zeros(B, **i32),
         order_hist=torch.zeros((B, MAX_ORDER + 1), **i32),
     )
+
+    # --- event channel ---
+    if events is not None:
+        g0 = torch.as_tensor(events.fn(t0, y0), **kw)
+        if g0.ndim != 2 or g0.shape[0] != B:
+            raise ValueError(f"EventSpec.fn must return ({B}, E); got "
+                             f"{tuple(g0.shape)}")
+        n_ev = g0.shape[1]
+        ev_cap = int(events.capacity)
+        ev_dir = torch.as_tensor(events.direction or (0,) * n_ev,
+                                 dtype=torch.int32, device=dev)
+        ev_term = torch.as_tensor(events.terminal or (False,) * n_ev,
+                                  dtype=torch.bool, device=dev)
+        if ev_dir.shape != (n_ev,) or ev_term.shape != (n_ev,):
+            raise ValueError("EventSpec direction/terminal length must "
+                             "match the event vector length")
+        st.update(g_old=g0, ev_t=torch.full((B, n_ev, ev_cap), inf, **kw),
+                  ev_y=torch.zeros((B, n_ev, ev_cap, n), **kw),
+                  ev_count=torch.zeros((B, n_ev), **i32))
+
+    # --- dense-export buffers, written in place per accepted step (a
+    #     member that is not running or underflows writes its old value) ---
+    if dense_export:
+        S = int(config.max_steps)
+        seg = dict(t=torch.full((B, S), inf, **kw),
+                   h=torch.zeros((B, S), **kw),
+                   order=torch.zeros((B, S), **i32),
+                   D=tuple(torch.zeros((B, S, MAX_ORDER + 1) + Yp.shape[1:],
+                                       dtype=Yp.dtype, device=dev)
+                           for Yp in Y0b))
+    bi_all = torch.arange(B, device=dev)
 
     def interp_part(Dp, tv, t_new, h_new, order_new):
         """BdfDenseOutput of part ``Dp`` at times ``tv`` (B, T) ->
@@ -368,17 +387,28 @@ def bdf_solve(
         n_equal_steps = torch.where(pre_clamp, 0, n_equal_steps)
         h_abs = torch.where(last_accepted, h_clamped, h_abs)
 
-        # clip the final step to t_bound; the clamp and clip rescalings
+        # clip the final step to t_bound (with dense_window also to the
+        # (window-1)-th next t_eval point); the clamp and clip rescalings
         # compose into one change_D
+        if dw:
+            lo_eval = torch.searchsorted(t_eval_c, t[:, None].contiguous(),
+                                         right=True)[:, 0]
+            last = torch.clamp(lo_eval + (dw - 1), max=T - 1)
+            t_cap = torch.where(
+                lo_eval + (dw - 1) < T,
+                torch.gather(t_eval, 1, last[:, None])[:, 0], inf)
+            bound_eff = torch.minimum(t_bound, t_cap)
+        else:
+            bound_eff = t_bound
         t_new_raw = t + h_abs
-        clipped = t_new_raw > t_bound
-        t_new = torch.where(clipped, t_bound, t_new_raw)
+        clipped = t_new_raw > bound_eff
+        t_new = torch.where(clipped, bound_eff, t_new_raw)
         h = t_new - t
         clip_factor = torch.where(clipped, h / h_abs, one)
         rescale = pre_clamp | clipped
         if bool((rescale & running).any()):
             f_tot = pre_factor * clip_factor
-            D = tuple(_where(rescale, _wsum(
+            D = tuple(where_members(rescale, _wsum(
                 _padded_transform(f_tot.to(Dp.dtype), order), Dp), Dp)
                 for Dp in D)
         n_equal_steps = torch.where(clipped, 0, n_equal_steps)
@@ -400,7 +430,7 @@ def bdf_solve(
         fact = st["fact"]
         if bool((running & ~lu_valid).any()):
             new = factor_c(I_n - c[:, None, None] * st["J"].to(dtype))
-            fact = new if fact is None else _where(lu_valid, fact, new)
+            fact = new if fact is None else where_members(lu_valid, fact, new)
         nlu = st["nlu"] + (~lu_valid).to(torch.int32)
         fact32 = _fact32(fact) if split else None
 
@@ -421,7 +451,7 @@ def bdf_solve(
             nonfinite = ~torch.stack(
                 [torch.isfinite(Fp).reshape(B, -1).all(1) for Fp in Fv]
             ).all(0)
-            resid = tuple(_bcast(cb, Fp) * Fp - pp - dp
+            resid = tuple(bcast(cb, Fp) * Fp - pp - dp
                           for cb, Fp, pp, dp in zip(c_b, Fv, psi, d))
             if split:
                 dy = (solve_c(fact, resid[0]), solve_fn(fact32, resid[1]))
@@ -435,8 +465,10 @@ def bdf_solve(
                 | (rate ** (NEWTON_MAXITER - it).to(dtype) / (1.0 - rate)
                    * dy_norm > newton_tol))
             ok = go & ~nonfinite & ~diverged
-            Y = tuple(_where(ok, Yp + dyp, Yp) for Yp, dyp in zip(Y, dy))
-            d = tuple(_where(ok, dp + dyp, dp) for dp, dyp in zip(d, dy))
+            Y = tuple(where_members(ok, Yp + dyp, Yp)
+                      for Yp, dyp in zip(Y, dy))
+            d = tuple(where_members(ok, dp + dyp, dp)
+                      for dp, dyp in zip(d, dy))
             conv_now = ok & ((dy_norm == 0.0)
                              | (have_rate & (rate / (1.0 - rate) * dy_norm
                                              < newton_tol)))
@@ -455,7 +487,7 @@ def bdf_solve(
         case_C = ~converged & st["current_jac"]
         J = st["J"]
         if bool((case_B & running).any()):
-            J = _where(case_B, jac_c(t_new, y_predict[0][..., 0]), J)
+            J = where_members(case_B, jac_c(t_new, y_predict[0][..., 0]), J)
         njev = st["njev"] + case_B.to(torch.int32)
 
         safety = (config.safety * (2 * NEWTON_MAXITER + 1)
@@ -463,7 +495,7 @@ def bdf_solve(
         scale_new = atol + rtol * torch.abs(Y_new[0][..., 0])
         d0, D0 = d[0], D[0]
         pdt = D0.dtype
-        err = _bcast(error_const[order].to(pdt), d0) * d0
+        err = bcast(error_const[order].to(pdt), d0) * d0
         if config.sens_error_control and m and not split:
             scale_full = atol + rtol * torch.abs(Y_new[0])
             error_norm = rms_norm(err / scale_full).to(dtype)
@@ -483,8 +515,8 @@ def bdf_solve(
         ec_m = error_const[torch.clamp(order - 1, min=0)].to(pdt)
         ec_p = error_const[torch.clamp(order + 1, max=MAX_ORDER)].to(pdt)
         # D_acc[order] = D[order] + d;  D_acc[order+2] = d - D[order+1]
-        err_m = _bcast(ec_m, d0) * (D0[bi, order] + d0)
-        err_p = _bcast(ec_p, d0) * (d0 - D0[bi, order + 1])
+        err_m = bcast(ec_m, d0) * (D0[bi, order] + d0)
+        err_p = bcast(ec_p, d0) * (d0 - D0[bi, order + 1])
         if scale_full is not None:
             em = rms_norm(err_m / scale_full).to(dtype)
             ep = rms_norm(err_p / scale_full).to(dtype)
@@ -539,7 +571,7 @@ def bdf_solve(
         W = Tc @ Ma
         v = (Tc @ ua[:, :, None])[:, :, 0]
         D_new = tuple(_wsum(W, Dp)
-                      + _bcast(v.to(Dp.dtype), Dp) * dp[:, None]
+                      + bcast(v.to(Dp.dtype), Dp) * dp[:, None]
                       for Dp, dp in zip(D, d))
         h_new = h_abs * torch.where(change, h_factor, one)
 
@@ -551,20 +583,117 @@ def bdf_solve(
         current_jac_new = torch.where(
             case_B, True, torch.where(accept, False, st["current_jac"]))
 
-        # --- dense output at t_eval from the post-update D/order/h ---
-        ys_acc = tuple(
-            common.interp_accumulate(
-                t_eval, torch.where(accept, t, inf), t_new,
-                lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
-                                              order_new), acc)
-            for Dp, acc in zip(D_new, st["ys_acc"]))
+        # --- dense export: this step's interpolant, pre-event-rewrite ---
+        if dense_export:
+            write = accept & running & ~too_small
+            slot = torch.clamp(st["naccepted"], max=S - 1).to(torch.int64)
+            for key, val in (("t", t_new), ("h", h_new),
+                             ("order", order_new.to(torch.int32))):
+                buf = seg[key]
+                buf[bi_all, slot] = torch.where(write, val,
+                                                buf[bi_all, slot])
+            for Dp, buf in zip(D_new, seg["D"]):
+                buf[bi_all, slot] = torch.where(
+                    bcast(write, Dp[:, :MAX_ORDER + 1]),
+                    Dp[:, :MAX_ORDER + 1], buf[bi_all, slot])
 
-        done = accept & (t_new >= t_bound)
+        # --- state-dependent events ---
+        ev_new = {}
+        has_term = None
+        t_fill_hi = t_new
+        D_fill = D_new
+        if events is not None:
+            def y_at(tv):
+                # state column of this step's interpolant at tv (B, E)
+                return interp_part(D_new[0], tv, t_new, h_new,
+                                   order_new)[..., 0].to(dtype)
+
+            g_old = st["g_old"]
+            g_new = torch.as_tensor(events.fn(t_new, Y_new[0][..., 0]
+                                              .to(dtype)), **kw)
+            up = (g_old <= 0) & (g_new >= 0)
+            down = (g_old >= 0) & (g_new <= 0)
+            trig = torch.where(ev_dir > 0, up,
+                               torch.where(ev_dir < 0, down, up | down))
+            fired = accept[:, None] & trig
+            hi = t_new[:, None].expand(B, n_ev)
+            if bool((fired & running[:, None]).any()):
+                # bisection on the step's polynomial; fn is evaluated once
+                # per event at that event's mids, keeping member order
+                lo, glo = t[:, None].expand(B, n_ev), g_old
+                for _ in range(int(events.bisect_iters)):
+                    mid = 0.5 * (lo + hi)
+                    ys_mid = y_at(mid)
+                    g_mid = torch.stack(
+                        [torch.as_tensor(events.fn(mid[:, e],
+                                                   ys_mid[:, e]), **kw)[:, e]
+                         for e in range(n_ev)], dim=1)
+                    same = ((torch.sign(g_mid) == torch.sign(glo))
+                            & (g_mid != 0.0))
+                    lo = torch.where(same, mid, lo)
+                    hi = torch.where(same, hi, mid)
+                    glo = torch.where(same, g_mid, glo)
+            t_root = torch.where(fired, hi, inf)
+            # the earliest terminal root ends the member there; later
+            # occurrences of any event are discarded
+            t_term = torch.amin(torch.where(fired & ev_term, t_root, inf),
+                                dim=1)
+            has_term = torch.isfinite(t_term)
+            rec = fired & (t_root <= t_term[:, None])
+            count = st["ev_count"]
+            slot_e = torch.clamp(count, max=ev_cap - 1).to(torch.int64)
+            can_store = rec & (count < ev_cap)
+            ys_root = y_at(torch.where(torch.isfinite(t_root), t_root,
+                                       t_new[:, None]))
+            ev_t = st["ev_t"].clone()
+            ev_y = st["ev_y"].clone()
+            old_t = torch.gather(ev_t, 2, slot_e[..., None])[..., 0]
+            ev_t.scatter_(2, slot_e[..., None],
+                          torch.where(can_store, t_root, old_t)[..., None])
+            idx_y = slot_e[..., None, None].expand(B, n_ev, 1, n)
+            old_y = torch.gather(ev_y, 2, idx_y)[:, :, 0]
+            ev_y.scatter_(2, idx_y, torch.where(can_store[..., None],
+                                                ys_root, old_y)[:, :, None])
+            t_term_safe = torch.where(has_term, t_term, t_new)
+            ev_new = dict(g_old=torch.where(accept[:, None], g_new, g_old),
+                          ev_t=ev_t, ev_y=ev_y,
+                          ev_count=count + rec.to(torch.int32))
+            # t_eval is filled from the step's own polynomial up to the
+            # event time; the anchor row then moves to the event state
+            t_fill_hi = t_term_safe
+            Y_term = tuple(interp_part(Dp, t_term_safe[:, None], t_new,
+                                       h_new, order_new)[:, 0]
+                           for Dp in D_new)
+            D_new = tuple(torch.cat([torch.where(bcast(has_term, Yt), Yt,
+                                                 Dp[:, 0])[:, None],
+                                     Dp[:, 1:]], dim=1)
+                          for Dp, Yt in zip(D_new, Y_term))
+
+        # --- dense output at t_eval from the post-update D/order/h ---
+        t_old_fill = torch.where(accept, t, inf)
+        if dw:
+            ys_acc = tuple(
+                common.interp_accumulate_windowed(
+                    t_eval, lo_eval, t_old_fill, t_fill_hi,
+                    lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
+                                                  order_new), acc, dw,
+                    gate=accept)
+                for Dp, acc in zip(D_fill, st["ys_acc"]))
+        else:
+            ys_acc = tuple(
+                common.interp_accumulate(
+                    t_eval, t_old_fill, t_fill_hi,
+                    lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
+                                                  order_new), acc)
+                for Dp, acc in zip(D_fill, st["ys_acc"]))
+
         nsteps = st["nsteps"] + 1
-        status = torch.where(
-            done, STATUS_DONE,
-            torch.where(nsteps >= config.max_steps, STATUS_MAX_STEPS,
-                        STATUS_RUNNING)).to(torch.int32)
+        done, status = common.step_status(accept, t_new, t_bound, nsteps,
+                                          config.max_steps)
+        if has_term is not None:
+            status = torch.where(has_term, STATUS_EVENT, status).to(
+                torch.int32)
+            t_next = torch.where(has_term, t_term_safe, t_next)
 
         acc32 = accept.to(torch.int32)
         new_st = dict(
@@ -577,15 +706,10 @@ def bdf_solve(
             nfev=nfev, njev=njev, nlu=nlu,
             order_hist=st["order_hist"]
             + torch.nn.functional.one_hot(order, MAX_ORDER + 1)
-            .to(torch.int32) * acc32[:, None])
+            .to(torch.int32) * acc32[:, None], **ev_new)
 
-        # a fatal underflow freezes the member's state with its status
-        frozen = dict(st, fact=fact,
-                      status=torch.where(too_small, STATUS_TOO_SMALL_STEP,
-                                         st["status"]).to(torch.int32))
-        new_st = _where(too_small, frozen, new_st)
-        # members that are not running keep their whole state
-        return _where(running, new_st, dict(st, fact=fact))
+        return common.settle(dict(st, fact=fact), new_st, too_small,
+                             running)
 
     while bool((st["status"] == STATUS_RUNNING).any()):
         st = body(st)
@@ -597,8 +721,16 @@ def bdf_solve(
         ys = st["ys_acc"][0][..., 0]
         sens = st["ys_acc"][0][..., 1:]
     y_final = torch.cat([Dp[:, 0].to(dtype) for Dp in st["D"]], dim=-1)
+    extra = {}
+    if events is not None:
+        extra.update(event_t=st["ev_t"], event_y=st["ev_y"],
+                     event_count=st["ev_count"])
+    if dense_export:
+        extra.update(seg_t=seg["t"], seg_h=seg["h"], seg_order=seg["order"],
+                     seg_D=seg["D"])
     return IntegrateResult(
         ys=ys, sens=sens, status=st["status"], nsteps=st["nsteps"],
         naccepted=st["naccepted"], nrejected=st["nrejected"],
         nfev=st["nfev"], njev=st["njev"], nlu=st["nlu"],
-        order_hist=st["order_hist"], t_final=st["t"], y_final=y_final)
+        order_hist=st["order_hist"], t_final=st["t"], y_final=y_final,
+        **extra)
