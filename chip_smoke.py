@@ -125,20 +125,63 @@ first failed check:
    1e-8 (the fits part by ~1e-5 along MM-3's k1/km1 valley, and every
    walker is an affine combination of the start walkers).
 
+16. the other steppers and the BDF's channels
+   (``phase_other_steppers``): ``[radau-mapk22]``, ``[rosenbrock-fit]``,
+   ``[auto-mapk22]``, ``[explicit]``, ``[multishoot]``,
+   ``[events-mapk22]``, ``[backward-mm3]``, ``[cli-solvers]``;
+
+17. the model and data surfaces (``phase_surfaces``; it first prints the
+   torch and sympy versions and whether matplotlib imports): ``[sbml]``,
+   ``examples/repressilator.sbml.xml`` through ``from_sbml`` at 256
+   members under ``'pallas'`` (K1 at n=6) against the library
+   repressilator, the MAPK-22 ``to_sbml``/``from_sbml`` round trip's RHS
+   to 1e-13, and tests/test_sbml.py's lowered events (a copy of its
+   document, ``EVENT_SBML``) through ``Project`` against SciPy;
+   ``[petab-mapk22]``, phase 7's problem exported to SBML, PEtab tables
+   and a CSV and read back by ``from_petab`` and ``experiments_from_csv``
+   (costs at θ_true equal to the native ``Project``'s and the JAX
+   package's to 1e-6), one screening evaluation with Jacobian at 256
+   ``sample_startpoints`` (K1), ``multistart_trf`` from the best 16 at
+   ``PETAB_TRF_ITERS`` iterations in the PEtab box (K1 and K2), two
+   members on the CPU; ``[compat]``, ``solve_ivp`` on the MAPK-22 RHS, a
+   terminal event's grid, ``odeint`` on MM-3 and
+   ``least_squares``/``leastsq`` on an MM-3 fit against SciPy; ``[plot]``,
+   ``multistart --plot`` and ``profile --plot`` on MM-3 at the smallest
+   depth (the PNGs, or the CLI's ImportError naming matplotlib where it
+   does not import);
+
+18. after the CLI group has ended: ``[banded]``, tests/test_banded.py's
+   relay chain at n = 200, kl = ku = 1, 64 rates, BDF at rtol 1e-6 under
+   ``'banded'`` and ``'lu'`` (statuses 1, step counts within 2,
+   trajectories within 1e-6; member 0 against the JAX package's banded
+   run and SciPy; one factorization and one solve timed); the
+   ``[petab-mapk22]`` screening evaluation timed beside the native one;
+   the kernel timings at n = 2-6 (``[K1-small]``/``[K2-small]``) and
+   n = 44 (``[K1-n44]``/``[K2-n44]``).
+
 ``phase_egfr_10k(card, n_starts=10000)``, not called by ``main()``, is
 config 5 at its literal scale (``bench/experiments/egfr_10k.py``) through
 ``TwoPhaseDriver``, in a call of its own.
 
-The launch counters are set to 0 just before each path and read just
-after. The lines before the last are a ``{"kernels": [...]}``
-JSON object (per kernel: launches on those paths, error against its plain
-version, its time, the plain version's, the least time the card could take
-and the library call's) and the card's name and power limit. The last line
-is ``{"ok": true, "device": {...}}``. The floor is context for the bounds
-(no one-launch kernel goes below it) and is not in the kernels' line.
-Library calls (``torch.linalg.inv``,
-``torch.linalg.solve``) are timed here as yardsticks only; the port never
-calls them.
+Phases 13 and 14 and ``[sample-mm3]`` run in a second process on the same
+card (``chip_smoke.py --cli-group <launches file>``, started after phase 5
+and joined before phase 18; its output is this one's), beside phases 6-17
+in this one: every path is host-bound, and in one process the whole took
+1013-1406 s against the 1200 s limit (PERF.md §4). Each lap of this
+process first checks that the CLI group has not failed. The two share the
+host's cores and the card, so the wall times of phases 6-17 and of the
+CLI group are not comparable with one-process runs; every kernel timing
+and phase 18 run with no second process. The launch counters, per
+process, are set to 0 just before each path and read just after.
+
+The lines before the last are a ``{"kernels": [...]}`` JSON object (per
+kernel: launches on those paths, error against its plain version, its
+time, the plain version's, the least time the card could take and the
+library call's) and the card's name and power limit. The last line is
+``{"ok": true, "device": {...}}``. The floor is context for the bounds (no
+one-launch kernel goes below it) and is not in the kernels' line. Library
+calls (``torch.linalg.inv``, ``torch.linalg.solve``) are timed here as
+yardsticks only; the port never calls them.
 
 ``python3 chip_smoke.py --profile`` adds one main-path batch, one
 screening evaluation of the fit path, one EGFR evaluation and one JAK-STAT
@@ -810,51 +853,28 @@ def phase_main_path():
 
 def build_fit_problem(device):
     """The MAPK-22 headline problem as ``bench/fits_bench.py`` builds it:
-    synthetic data from the true rates at 12 times for the 3 observables
-    (seed-0 noise, sigma = 2% of the largest value), the 12 MAPK-layer rate
-    constants free and the rest fixed at truth. Returns the tight
-    ``Project``, the screening ``Project`` and ``theta_true``."""
+    ``fit_data``'s data, the 12 MAPK-layer rate constants free and the
+    rest fixed at truth. Returns the tight ``Project``, the screening
+    ``Project`` and ``theta_true``."""
     import dataclasses
 
-    import torch
-
-    from tpusysbio_torch import SolverConfig
     from tpusysbio_torch.data import (Experiment, ExperimentBatch,
                                       Measurement)
-    from tpusysbio_torch.model import library
     from tpusysbio_torch.project import ParameterMap, Project
 
-    model = library.mapk_huang_ferrell(device=device)
-    p_true = library.mapk_true_params(device="cpu").numpy()
-    t = np.linspace(5.0, 100.0, 12)
-    sim = model.simulate(p_true[None], (0.0, 100.0), t,
-                         config=SolverConfig(rtol=1e-9, atol=1e-12,
-                                             max_steps=2048), device=device)
-    check(int(sim.status[0]) == 1, "fit: the data simulation did not finish")
-    p_dev = torch.as_tensor(p_true, device=device)[None].expand(12, -1)
-    obs = model.observables(sim.ys[0], p_dev).cpu().numpy()
-    rng = np.random.default_rng(0)
-    sigma = 0.02 * float(np.max(obs))
-    data = obs + rng.normal(scale=sigma, size=obs.shape)
+    model, p_true, t, data, sigma, free = fit_data(device)
     meas = tuple(Measurement(obs_index=i, times=t, values=data[:, i],
                              sigmas=np.full(len(t), sigma))
                  for i in range(model.n_obs))
     batch = ExperimentBatch.from_experiments([Experiment("wt", meas)],
                                              device=device)
     names = model.param_names
-    free = [n for n in names if n.startswith(("KKPP+K", "KPase+KP"))]
     fixed = {n: p_true[names.index(n)] for n in names if n not in free}
     pmap = ParameterMap.create(names, 1, shared=tuple(free), fixed=fixed,
                                device=device)
     tight = Project(model=model, pmap=pmap, batch=batch,
-                    config=SolverConfig(rtol=1e-6, atol=1e-9, max_steps=512,
-                                        linear_solver="pallas",
-                                        sens_precision="f32",
-                                        dense_f32=True))
-    screen = dataclasses.replace(
-        tight, config=SolverConfig(rtol=1e-3, atol=1e-6, max_steps=192,
-                                   linear_solver="pallas",
-                                   mixed_precision=True))
+                    config=tight_config())
+    screen = dataclasses.replace(tight, config=screen_config())
     theta_true = pmap.pack({n: p_true[names.index(n)] for n in free})
     return tight, screen, theta_true
 
@@ -2251,13 +2271,18 @@ CLI_SOLVER_BOUND = {"radau": 1e-4, "rosenbrock": 5e-3, "dopri5": 3e-4,
 
 
 class Laps:
-    """Wall time between calls, by the label of the phase just ended."""
+    """Wall time between calls, by the label of the phase just ended; each
+    call first runs ``Laps.watch`` where it is set."""
+
+    watch = None
 
     def __init__(self):
         self.t = time.perf_counter()
         self.laps = []
 
     def __call__(self, label):
+        if Laps.watch is not None:
+            Laps.watch()
         now = time.perf_counter()
         self.laps.append((label, now - self.t))
         self.t = now
@@ -2946,9 +2971,9 @@ def phase_n44_kernels(rng):
     return k1, k2
 
 
-def phase_other_steppers(card, problem, rng):
+def phase_other_steppers(card, problem):
     """Every phase of the other steppers and channels; their launches by
-    path, and K1/K2 at n=44."""
+    path."""
     launches, laps = {}, Laps()
     launches["radau-mapk22"], _ = phase_radau_mapk22(card)
     laps("radau-mapk22")
@@ -2966,10 +2991,808 @@ def phase_other_steppers(card, problem, rng):
     laps("backward-mm3")
     phase_cli_solvers(card)
     laps("cli-solvers")
-    n44 = phase_n44_kernels(rng)
-    laps("K1-n44/K2-n44")
     laps.report("the other steppers")
-    return launches, n44
+    return launches
+
+
+# --------------------------------------------------------------------------
+# The banded Newton solver and the model and data surfaces
+# --------------------------------------------------------------------------
+
+BANDED_N = 200              # [banded]: tests/test_banded.py's relay chain
+BANDED_BATCH = 64           # at n = 200, kl = ku = 1, 64 rates
+BANDED_K = 2.0              # member 0's rate, the test's
+BANDED_T = np.linspace(0.0, 5.0, 6)
+# The JAX package's 'banded' BDF run of member 0 (rtol 1e-6, atol 1e-9),
+# computed on the CPU: its step count and y(5) at BANDED_IDX
+BANDED_IDX = (0, 1, 2, 5, 10, 20)
+BANDED_JAX_NSTEPS = 112
+BANDED_JAX_Y5 = (4.541100191690356e-05, 0.00045403910264869916,
+                 0.00227003498538124, 0.037833101576072704,
+                 0.12510986264844703, 0.0018660474620755768)
+SBML_BATCH = 256            # [sbml]: repressilator members under 'pallas'
+SBML_T = np.linspace(0.0, 30.0, 16)
+PETAB_STARTS = 256          # [petab-mapk22]: screened starts
+PETAB_TOP_K = 16            # polished by TRF
+PETAB_TRF_ITERS = 2         # TRF iterations (the [fit-trf] depth)
+# the JAX package's from_petab cost at theta_true on the same files (the
+# data from the port's rtol 1e-9 simulation on the CPU; the cost held to
+# 1e-6 relative, which that simulation's card/CPU difference keeps far
+# inside), computed on the CPU with the tight config's rtol and atol
+PETAB_JAX_COST_TRUE = 10.81974397466153
+
+
+def chain_rhs(k):
+    """The relay chain of tests/test_banded.py, one member per rate in
+    ``k`` (B, 1): y_i' = k (y_{i-1} - y_i), minus 0.5 y_n² on the last."""
+    import torch
+
+    def rhs(t, y):
+        inflow = torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], dim=1)
+        out = k * (inflow - y)
+        return torch.cat([out[:, :-1], out[:, -1:] - 0.5 * y[:, -1:] ** 2],
+                         dim=1)
+
+    return rhs
+
+
+def scipy_chain(rate):
+    """SciPy's BDF at rtol 1e-10 on the chain with rate ``rate``."""
+    from scipy.integrate import solve_ivp
+
+    n = BANDED_N
+
+    def f(t, y):
+        inflow = np.concatenate([[0.0], y[:-1]])
+        out = rate * (inflow - y)
+        out[-1] -= 0.5 * y[-1] ** 2
+        return out
+
+    def jac(t, y):
+        J = rate * (np.eye(n, k=-1) - np.eye(n))
+        J[-1, -1] -= y[-1]
+        return J
+
+    y0 = np.zeros(n)
+    y0[0] = 1.0
+    sol = solve_ivp(f, (0.0, BANDED_T[-1]), y0, method="BDF",
+                    t_eval=BANDED_T, rtol=1e-10, atol=1e-13, jac=jac)
+    check(sol.success, f"SciPy: {sol.message}")
+    return sol.y.T
+
+
+def allclose_ratio(got, ref, rtol, atol):
+    """max |got − ref| / (atol + rtol |ref|): at most 1 where
+    ``np.allclose`` holds."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    return float(np.max(np.abs(got - ref) / (atol + rtol * np.abs(ref))))
+
+
+def phase_banded(card):
+    """The relay chain at n = 200 under 'banded' and 'lu' on the card:
+    statuses, step counts within 2, trajectories within 1e-6; member 0
+    against the JAX package's banded run and SciPy; the banded factor and
+    solve timed on the path's Newton matrices."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.linalg import make_linear_solver
+    from tpusysbio_torch.solvers import bdf_solve
+
+    n, B = BANDED_N, BANDED_BATCH
+    rng = np.random.default_rng(0)
+    rates = BANDED_K * np.exp(rng.normal(scale=0.1, size=B))
+    rates[0] = BANDED_K
+    k = torch.as_tensor(rates, device="cuda")[:, None]
+    y0 = torch.zeros((B, n), dtype=torch.float64, device="cuda")
+    y0[:, 0] = 1.0
+    t_eval = torch.as_tensor(BANDED_T, device="cuda")
+    runs, walls = {}, {}
+    for lin in ("banded", "lu"):
+        kw = dict(jac_bandwidth=(1, 1)) if lin == "banded" else {}
+        cfg = SolverConfig(rtol=1e-6, atol=1e-9, linear_solver=lin, **kw)
+        t0 = time.perf_counter()
+        runs[lin] = bdf_solve(chain_rhs(k), (0.0, float(BANDED_T[-1])), y0,
+                              t_eval, config=cfg)
+        torch.cuda.synchronize()
+        walls[lin] = time.perf_counter() - t0
+    band, lu = runs["banded"], runs["lu"]
+    check(band.status.tolist() == [1] * B and lu.status.tolist() == [1] * B,
+          f"banded: statuses {band.status.tolist()} / {lu.status.tolist()}")
+    dsteps = int((band.nsteps - lu.nsteps).abs().max())
+    ratio = allclose_ratio(band.ys.cpu().numpy(), lu.ys.cpu().numpy(), 1e-6,
+                           1e-9)
+    ys0 = band.ys[0].cpu().numpy()
+    jax_ratio = allclose_ratio(ys0[-1, list(BANDED_IDX)], BANDED_JAX_Y5,
+                               1e-6, 1e-9)
+    ref = scipy_chain(BANDED_K)
+    sp_err = float(np.max(np.abs(ys0 - ref)) / np.max(np.abs(ref)))
+    print(f"[banded] n={n}, kl=ku=1, B={B}: 'banded' {walls['banded']:.2f} "
+          f"s, mean steps {band.nsteps.double().mean():.2f}, nlu "
+          f"{band.nlu.double().mean():.2f}; 'lu' {walls['lu']:.2f} s, mean "
+          f"steps {lu.nsteps.double().mean():.2f}; step counts differ by at "
+          f"most {dsteps} (bound 2); ys |d|/(1e-9 + 1e-6|y|) {ratio:.3f} "
+          f"(bound 1)", flush=True)
+    print(f"[banded] member 0 (rate {BANDED_K}): {int(band.nsteps[0])} steps"
+          f" (the JAX package's banded run {BANDED_JAX_NSTEPS}), y(5) at "
+          f"{BANDED_IDX} against it {jax_ratio:.3f} (bound 1 at rtol 1e-6);"
+          f" against SciPy's BDF at rtol 1e-10 {sp_err:.3e} of max |y| "
+          f"(bound 1e-5)", flush=True)
+    check(dsteps <= 2 and ratio <= 1.0, "banded: 'banded' against 'lu'")
+    check(abs(int(band.nsteps[0]) - BANDED_JAX_NSTEPS) <= 2
+          and jax_ratio <= 1.0, "banded: member 0 against the JAX package")
+    check(sp_err <= 1e-5, "banded: member 0 against SciPy")
+
+    # the path's Newton matrices I - c J at y0, c = 1e-2
+    J = torch.func.vmap(torch.func.jacfwd(
+        lambda yy, kk: chain_rhs(kk[None])(None, yy[None])[0]))(y0, k)
+    A = torch.eye(n, dtype=torch.float64, device="cuda") - 1e-2 * J
+    b = torch.as_tensor(rng.normal(size=(B, n, 1)), device="cuda")
+    times = {}
+    for lin, bw in (("banded", (1, 1)), ("lu", None)):
+        factor, solve = make_linear_solver(lin, bw)
+        fact = factor(A)
+        x = solve(fact, b)
+        res = float(((A @ x - b).abs().max() / b.abs().max()))
+        check(res < 1e-12, f"banded: {lin} solve residual {res:.3e}")
+        times[lin] = (cuda_ms(lambda: factor(A), reps=5, warmup=1,
+                              queued=False),
+                      cuda_ms(lambda: solve(fact, b), reps=5, warmup=1,
+                              queued=False))
+    print(f"[banded] one factorization / one solve of B={B} n={n} Newton "
+          f"matrices ({card}): 'banded' {times['banded'][0] / 1e3:.4f} s / "
+          f"{times['banded'][1] / 1e3:.4f} s; 'lu' "
+          f"{times['lu'][0] / 1e3:.4f} s / {times['lu'][1] / 1e3:.4f} s",
+          flush=True)
+
+
+# tests/test_sbml.py's event-lowering document (a dose of A at t=2, a feed
+# switched on at t=1.5), copied: the smoke imports no test module
+EVENT_T_CSYM = ('<csymbol encoding="text" definitionURL='
+           '"http://www.sbml.org/sbml/symbols/time">t</csymbol>')
+
+EVENT_SBML = f"""<?xml version="1.0" encoding="UTF-8"?>
+<sbml xmlns="http://www.sbml.org/sbml/level2/version4" level="2" version="4">
+ <model id="dosed">
+  <listOfCompartments>
+   <compartment id="cell" size="1"/>
+  </listOfCompartments>
+  <listOfSpecies>
+   <species id="A" compartment="cell" initialConcentration="1"/>
+  </listOfSpecies>
+  <listOfParameters>
+   <parameter id="kdeg" value="0.3"/>
+   <parameter id="inflow" value="0" constant="false"/>
+  </listOfParameters>
+  <listOfReactions>
+   <reaction id="prod" reversible="false">
+    <listOfProducts><speciesReference species="A"/></listOfProducts>
+    <kineticLaw>
+     <math xmlns="http://www.w3.org/1998/Math/MathML"><ci>inflow</ci></math>
+    </kineticLaw>
+   </reaction>
+   <reaction id="deg" reversible="false">
+    <listOfReactants><speciesReference species="A"/></listOfReactants>
+    <kineticLaw>
+     <math xmlns="http://www.w3.org/1998/Math/MathML">
+      <apply><times/><ci>kdeg</ci><ci>A</ci></apply>
+     </math>
+    </kineticLaw>
+   </reaction>
+  </listOfReactions>
+  <listOfEvents>
+   <event id="dose">
+    <trigger>
+     <math xmlns="http://www.w3.org/1998/Math/MathML">
+      <apply><geq/>{EVENT_T_CSYM}<cn>2</cn></apply>
+     </math>
+    </trigger>
+    <listOfEventAssignments>
+     <eventAssignment variable="A">
+      <math xmlns="http://www.w3.org/1998/Math/MathML"><cn>4</cn></math>
+     </eventAssignment>
+    </listOfEventAssignments>
+   </event>
+   <event id="feed">
+    <trigger>
+     <math xmlns="http://www.w3.org/1998/Math/MathML">
+      <apply><geq/>{EVENT_T_CSYM}<cn>1.5</cn></apply>
+     </math>
+    </trigger>
+    <listOfEventAssignments>
+     <eventAssignment variable="inflow">
+      <math xmlns="http://www.w3.org/1998/Math/MathML"><cn>1.5</cn></math>
+     </eventAssignment>
+    </listOfEventAssignments>
+   </event>
+  </listOfEvents>
+ </model>
+</sbml>
+"""
+
+
+def phase_sbml(card):
+    """examples/repressilator.sbml.xml imported on the card, 256 members
+    under 'pallas' against the library repressilator; the MAPK-22 SBML
+    round trip's RHS; the lowered-event model of tests/test_sbml.py
+    through ``Project`` against the SciPy piecewise oracle."""
+    import torch
+    from scipy.integrate import solve_ivp
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.data import (Experiment, ExperimentBatch,
+                                      Measurement)
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.model.sbml_export import to_sbml
+    from tpusysbio_torch.model.sbml_import import from_sbml
+    from tpusysbio_torch.project import ParameterMap, Project
+
+    model, p0 = from_sbml(os.path.join(ROOT, "examples",
+                                       "repressilator.sbml.xml"))
+    lib = library.repressilator(device="cuda")
+    check(model.param_names == lib.param_names
+          and model.state_names == lib.state_names,
+          "sbml: the repressilator's names differ from the library's")
+    ps = spread(library.REPRESSILATOR_TRUE_PARAMS, SBML_BATCH)
+    cfg = SolverConfig(rtol=1e-6, atol=1e-9, linear_solver="pallas")
+    runs, walls = {}, {}
+    gpu_lu.reset_launches()
+    for tag, m in (("sbml", model), ("library", lib)):
+        t0 = time.perf_counter()
+        runs[tag] = m.simulate(ps, (0.0, float(SBML_T[-1])), SBML_T,
+                               config=cfg, device="cuda")
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        if tag == "sbml":
+            launches = dict(gpu_lu.LAUNCHES)
+    a, b = runs["sbml"], runs["library"]
+    check(a.status.tolist() == [1] * SBML_BATCH
+          and b.status.tolist() == [1] * SBML_BATCH,
+          "sbml: a repressilator member did not finish")
+    dsteps = int((a.nsteps - b.nsteps).abs().max())
+    same = int((a.nsteps == b.nsteps).sum())
+    ratio = allclose_ratio(a.ys.cpu().numpy(), b.ys.cpu().numpy(), 1e-6,
+                           1e-9)
+    print(f"[sbml] repressilator from SBML, B={SBML_BATCH} under 'pallas': "
+          f"{walls['sbml']:.2f} s (library {walls['library']:.2f} s), mean "
+          f"steps {a.nsteps.double().mean():.2f} ({b.nsteps.double().mean():.2f}"
+          f"); {same}/{SBML_BATCH} equal step counts, at most {dsteps} apart "
+          f"(bound 2); ys |d|/(1e-9 + 1e-6|y|) {ratio:.3f} (bound 1); "
+          f"launches {launches}", flush=True)
+    check(dsteps <= 2 and ratio <= 1.0, "sbml: against the library model")
+    check_k1_k2("sbml", launches, need_k2=False)
+
+    net = library._mapk_network(device="cuda")
+    p_true = library.mapk_true_params(device="cpu").numpy()
+    mapk = library.mapk_huang_ferrell(device="cuda")
+    y0 = mapk.y0(torch.as_tensor(p_true, device="cuda")[None])[0]
+    imported, p_doc = from_sbml(to_sbml(net, y0.cpu().numpy(), p_true,
+                                        name="mapk22"))
+    check(np.array_equal(np.asarray(p_doc), p_true),
+          "sbml: the MAPK-22 document's constants")
+    rng = np.random.default_rng(5)
+    y = torch.as_tensor(rng.uniform(0.0, 1.2, (256, 22)), device="cuda")
+    pt = torch.as_tensor(spread(p_true, 256, seed=3), device="cuda")
+    t = torch.zeros(256, dtype=torch.float64, device="cuda")
+    got, want = imported.rhs(t, y, pt), mapk.rhs(t, y, pt)
+    rhs_rel = float(((got - want).abs().max(1).values
+                     / want.abs().max(1).values).max())
+    print(f"[sbml] MAPK-22 through to_sbml/from_sbml: the RHS at 256 random "
+          f"states {rhs_rel:.3e} from the library's, relative (bound 1e-13)",
+          flush=True)
+    check(rhs_rel <= 1e-13, "sbml: the MAPK-22 round trip's RHS")
+
+    # tests/test_sbml.py's dosing (species) and feed (parameter) events
+    ev_model, _, lowered = from_sbml(EVENT_SBML, events="lower")
+    t_obs = np.linspace(0.5, 6.0, 8)
+    oracle = np.zeros(8)
+    yv = np.array([1.0])
+    for t_lo, t_hi, infl, dose in ((0.0, 1.5, 0.0, None),
+                                   (1.5, 2.0, 1.5, None),
+                                   (2.0, 6.0, 1.5, 4.0)):
+        if dose is not None:
+            yv = np.array([dose])
+        pts = sorted({float(x) for x in t_obs if t_lo < x <= t_hi} | {t_hi})
+        sol = solve_ivp(lambda tt, yy: [infl - 0.3 * yy[0]], (t_lo, t_hi),
+                        yv, method="BDF", t_eval=pts, rtol=1e-10, atol=1e-13)
+        check(sol.success, "sbml: the SciPy oracle")
+        for i, tk in enumerate(t_obs):
+            if t_lo < tk <= t_hi:
+                oracle[i] = sol.y[0, pts.index(float(tk))]
+        yv = sol.y[:, -1]
+    exp = Experiment(
+        "dosed", (Measurement(0, t_obs, oracle, np.ones(8)),),
+        inputs=tuple((t_, g, v) for kind, t_, g, v in lowered
+                     if kind == "param"),
+        input_states=tuple((t_, g, v) for kind, t_, g, v in lowered
+                           if kind == "state"))
+    batch = ExperimentBatch.from_experiments(
+        [exp], param_names=ev_model.param_names,
+        state_names=ev_model.state_names, device="cuda")
+    pmap = ParameterMap.create(ev_model.param_names, 1, shared=("kdeg",),
+                               fixed={"inflow": [0.0]}, device="cuda")
+    proj = Project(model=ev_model, pmap=pmap, batch=batch,
+                   config=SolverConfig(rtol=1e-9, atol=1e-12))
+    r = proj.residuals(pmap.pack({"kdeg": 0.3}))
+    r_max = float(r.abs().max())
+    print(f"[sbml] lowered events {lowered} through Project on the card: "
+          f"max |residual| against the SciPy piecewise oracle {r_max:.3e} "
+          f"(bound 1e-6)", flush=True)
+    check(r_max < 1e-6, "sbml: the lowered-event model against SciPy")
+    return launches
+
+
+def fit_data(device):
+    """[fit]'s data: MAPK-22 at the true rates, 12 times, 3 observables,
+    seed-0 noise, sigma = 2% of the largest value. Returns the model, the
+    true rates, the times, the data (12, 3), sigma and the free names."""
+    import torch
+
+    from tpusysbio_torch import SolverConfig
+    from tpusysbio_torch.model import library
+
+    model = library.mapk_huang_ferrell(device=device)
+    p_true = library.mapk_true_params(device="cpu").numpy()
+    t = np.linspace(5.0, 100.0, 12)
+    sim = model.simulate(p_true[None], (0.0, 100.0), t,
+                         config=SolverConfig(rtol=1e-9, atol=1e-12,
+                                             max_steps=2048), device=device)
+    check(int(sim.status[0]) == 1, "fit: the data simulation did not finish")
+    p_dev = torch.as_tensor(p_true, device=device)[None].expand(12, -1)
+    obs = model.observables(sim.ys[0], p_dev).cpu().numpy()
+    rng = np.random.default_rng(0)
+    sigma = 0.02 * float(np.max(obs))
+    data = obs + rng.normal(scale=sigma, size=obs.shape)
+    names = model.param_names
+    free = [n for n in names if n.startswith(("KKPP+K", "KPase+KP"))]
+    return model, p_true, t, data, sigma, free
+
+
+def tight_config():
+    from tpusysbio_torch import SolverConfig
+
+    return SolverConfig(rtol=1e-6, atol=1e-9, max_steps=512,
+                        linear_solver="pallas", sens_precision="f32",
+                        dense_f32=True)
+
+
+def screen_config():
+    from tpusysbio_torch import SolverConfig
+
+    return SolverConfig(rtol=1e-3, atol=1e-6, max_steps=192,
+                        linear_solver="pallas", mixed_precision=True)
+
+
+def write_petab_mapk22(dirpath, device):
+    """[fit]'s problem as PEtab files in ``dirpath``: the SBML export of
+    the MAPK-22 network with its y0 and true rates; parameters (the 12
+    free rates estimated with bounds k·e^-1 and k·e^1, natural-log θ_true
+    ± 1, the rest fixed at their values); the observables KKKs, KKPP and
+    KPP with the constant sigma; one condition; the measurements, also as
+    a tidy CSV. Returns the problem file's and the CSV's paths."""
+    import torch
+
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.model.sbml_export import to_sbml
+
+    model, p_true, t, data, sigma, free = fit_data(device)
+    net = library._mapk_network(device=device)
+    y0 = model.y0(torch.as_tensor(p_true, device=device)[None])[0]
+    doc = to_sbml(net, y0.cpu().numpy(), p_true, name="mapk22")
+    with open(os.path.join(dirpath, "model.xml"), "w") as fh:
+        fh.write(doc)
+    # the document's parameter ids, in reaction order (its listOfParameters)
+    import re
+    ids = re.findall(r'<parameter id="([^"]+)"', doc)
+    check(len(ids) == len(p_true), "petab: the document's parameter ids")
+    rows = ["parameterId\tparameterScale\tlowerBound\tupperBound\t"
+            "nominalValue\testimate"]
+    for name, pid, k in zip(model.param_names, ids, p_true):
+        if name in free:
+            rows.append(f"{pid}\tlog\t{float(k * np.exp(-1.0))!r}\t"
+                        f"{float(k * np.exp(1.0))!r}\t{float(k)!r}\t1")
+        else:
+            rows.append(f"{pid}\tlog\t\t\t{float(k)!r}\t0")
+    obs_names = ("KKKs", "KKPP", "KPP")
+    files = {
+        "parameters.tsv": rows,
+        "observables.tsv": ["observableId\tobservableFormula\tnoiseFormula"]
+        + [f"obs_{s}\t{s}\t{sigma!r}" for s in obs_names],
+        "conditions.tsv": ["conditionId", "wt"],
+        "measurements.tsv": [
+            "observableId\tsimulationConditionId\ttime\tmeasurement"] + [
+            f"obs_{s}\twt\t{float(ti)!r}\t{float(data[i, j])!r}"
+            for j, s in enumerate(obs_names) for i, ti in enumerate(t)],
+        "data.csv": ["experiment,observable,time,value,sigma"] + [
+            f"wt,{s},{float(ti)!r},{float(data[i, j])!r},{sigma!r}"
+            for j, s in enumerate(obs_names) for i, ti in enumerate(t)],
+        "problem.yaml": [
+            "format_version: 1", "parameter_file: parameters.tsv",
+            "problems:", "  - sbml_files: [model.xml]",
+            "    condition_files: [conditions.tsv]",
+            "    observable_files: [observables.tsv]",
+            "    measurement_files: [measurements.tsv]"],
+    }
+    for name, lines in files.items():
+        with open(os.path.join(dirpath, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    return (os.path.join(dirpath, "problem.yaml"),
+            os.path.join(dirpath, "data.csv"))
+
+
+def phase_petab_mapk22(card, problem):
+    """[fit]'s problem reached through to_sbml, the PEtab tables and the
+    CSV: the costs at θ_true against the native Project and the JAX
+    package's from_petab; one screening evaluation with Jacobian at 256
+    ``sample_startpoints`` (K1); ``multistart_trf`` from the best 16 at
+    ``PETAB_TRF_ITERS`` iterations in the PEtab box (K1 and K2); two
+    members on the CPU. Returns the launches and a function that times
+    the screening evaluation beside [fit]'s native one."""
+    import dataclasses
+
+    import torch
+
+    from tpusysbio_torch import FitConfig
+    from tpusysbio_torch.data import ExperimentBatch, experiments_from_csv
+    from tpusysbio_torch.fit import multistart_trf
+    from tpusysbio_torch.linalg import gpu_lu
+    from tpusysbio_torch.model.sbml_import import from_sbml
+    from tpusysbio_torch.petab_import import from_petab
+    from tpusysbio_torch.project import ParameterMap, Project
+
+    tight_native, screen_native, theta_true, _ = problem
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml_path, csv_path = write_petab_mapk22(tmp, "cuda")
+        t0 = time.perf_counter()
+        prob = from_petab(yaml_path, config=tight_config(), device="cuda")
+        load_s = time.perf_counter() - t0
+        prob_cpu = from_petab(yaml_path, config=tight_config(), device="cpu")
+        sbml_model, p_doc = from_sbml(os.path.join(tmp, "model.xml"))
+        exps = experiments_from_csv(csv_path, model=sbml_model)
+    check(prob.project.n_theta == 12 and prob.model.n_states == 22
+          and prob.project.n_residuals == 36,
+          "petab: not the 22-state, 12-parameter, 36-row problem")
+    th_true = theta_true.to(torch.float64)
+    cost_petab = float(prob.project.cost(th_true))
+    cost_native = float(tight_native.cost(theta_true))
+    names = sbml_model.param_names
+    free_ids = prob.x_ids
+    fixed = {n: v for n, v in zip(names, p_doc) if n not in free_ids}
+    pmap = ParameterMap.create(names, 1, shared=free_ids, fixed=fixed,
+                               device="cuda")
+    csv_proj = Project(model=sbml_model, pmap=pmap,
+                       batch=ExperimentBatch.from_experiments(
+                           exps, device="cuda"), config=tight_config())
+    cost_csv = float(csv_proj.cost(th_true))
+    rel = {tag: abs(c - cost_petab) / cost_petab for tag, c in (
+        ("native", cost_native), ("JAX", PETAB_JAX_COST_TRUE),
+        ("CSV", cost_csv))}
+    print(f"[petab-mapk22] from_petab on the card in {load_s:.2f} s; cost at "
+          f"theta_true {cost_petab:.9f}: the native [fit] Project's "
+          f"{cost_native:.9f} ({rel['native']:.2e}), the JAX package's "
+          f"from_petab {PETAB_JAX_COST_TRUE:.9f} ({rel['JAX']:.2e}), the CSV "
+          f"records' Project {cost_csv:.9f} ({rel['CSV']:.2e}); bound 1e-6 "
+          f"relative", flush=True)
+    check(max(rel.values()) <= 1e-6, f"petab: costs at theta_true {rel}")
+
+    lb = torch.as_tensor(prob.lb, device="cuda")
+    ub = torch.as_tensor(prob.ub, device="cuda")
+    box = float(torch.max((lb - (th_true - 1.0)).abs().max(),
+                          (ub - (th_true + 1.0)).abs().max()))
+    check(box <= 1e-12, f"petab: the box is not theta_true ± 1 ({box})")
+    screen = dataclasses.replace(prob.project, config=screen_config())
+    starts = prob.sample_startpoints(torch.Generator().manual_seed(0),
+                                     PETAB_STARTS)
+    gpu_lu.reset_launches()
+    ev = screen.evaluate(starts, with_jac=True)
+    l_screen = dict(gpu_lu.LAUNCHES)
+    native_ev = screen_native.evaluate(starts, with_jac=True)
+    s_cost = ev.cost.cpu().numpy()
+    n_bad = int((~np.isfinite(s_cost)).sum())
+    n_bad_native = int((~np.isfinite(native_ev.cost.cpu().numpy())).sum())
+    print(f"[petab-mapk22] one screening evaluation with Jacobian of "
+          f"{PETAB_STARTS} sample_startpoints: non-finite costs {n_bad} "
+          f"(native {n_bad_native}; bound 56); launches {l_screen}",
+          flush=True)
+    check(n_bad <= 56, f"petab: {n_bad} non-finite screened costs")
+    check(l_screen["gj_inverse_f32"] > 0
+          and l_screen["gj_inverse_major_f32"] == 0,
+          f"petab: the screen must launch K1: {l_screen}")
+
+    order = np.argsort(np.where(np.isfinite(s_cost), s_cost, np.inf),
+                       kind="stable")[:PETAB_TOP_K]
+    x0 = starts[order.tolist()]
+    c_start = prob.project.cost(x0)
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    res = multistart_trf(prob.project.residuals,
+                         prob.project.residuals_and_jacobian, x0, lb, ub,
+                         FitConfig(max_iter=PETAB_TRF_ITERS))
+    torch.cuda.synchronize()
+    trf_s = time.perf_counter() - t0
+    l_trf = dict(gpu_lu.LAUNCHES)
+    launches = {k: l_screen[k] + l_trf[k] for k in l_trf}
+    inside = bool(((res.theta > lb) & (res.theta < ub)).all())
+    best0, best = float(c_start.min()), float(res.cost.min())
+    status = res.status.cpu().numpy()
+    print(f"[petab-mapk22] multistart_trf from the best {PETAB_TOP_K} at "
+          f"{PETAB_TRF_ITERS} iterations: {trf_s:.2f} s, best cost "
+          f"{best0:.6f} -> {best:.6f} (cost at theta_true "
+          f"{cost_petab:.6f}), statuses {status.tolist()}, every θ inside "
+          f"the box: {inside}; launches {l_trf}", flush=True)
+    check(inside and bool((status >= 0).all())
+          and bool(np.isfinite(res.cost.cpu().numpy()).all()),
+          "petab: TRF left the box or failed")
+    check(best <= best0, f"petab: the best cost rose {best0} -> {best}")
+    check_k1_k2("petab-mapk22", launches)
+
+    two = res.theta[:2]
+    dev_ev = prob.project.evaluate(two, with_jac=True)
+    cpu_ev = prob_cpu.project.evaluate(two.cpu(), with_jac=True)
+    r_rel = float((dev_ev.residuals.cpu() - cpu_ev.residuals).abs().max()
+                  / cpu_ev.residuals.abs().max())
+    j_rel = float((dev_ev.jacobian.cpu() - cpu_ev.jacobian).abs().max()
+                  / cpu_ev.jacobian.abs().max())
+    print(f"[petab-mapk22] two members on the CPU: residuals {r_rel:.3e} "
+          f"(bound 1e-7), Jacobian {j_rel:.3e} (bound 1e-3, f32 "
+          f"sensitivity columns)", flush=True)
+    check(bool(torch.equal(dev_ev.status.cpu(), cpu_ev.status)),
+          "petab: CPU statuses differ")
+    check(r_rel <= 1e-7 and j_rel <= 1e-3, "petab: the CPU re-run")
+
+    def timed():
+        """The two screening evaluations again, timed: the imported
+        model's against [fit]'s native one."""
+        secs = []
+        for proj in (screen, screen_native):
+            t0 = time.perf_counter()
+            proj.evaluate(starts, with_jac=True)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        print(f"[petab-mapk22] one screening evaluation with Jacobian of "
+              f"{PETAB_STARTS} sample_startpoints ({card}): {secs[0]:.2f} "
+              f"s, [fit]'s native screening Project at the same starts "
+              f"{secs[1]:.2f} s (ratio {secs[0] / secs[1]:.2f})",
+              flush=True)
+
+    return launches, timed
+
+
+def phase_compat(card):
+    """The SciPy facades on the card against SciPy: solve_ivp('BDF') on
+    the MAPK-22 RHS as an unbatched torch function; a terminal event's
+    grid; odeint on MM-3; least_squares (trf, bounds, soft_l1) and
+    leastsq on an MM-3 fit."""
+    import scipy.integrate as si
+    import scipy.optimize as so
+    import torch
+
+    from tpusysbio_torch import SolverConfig, compat
+    from tpusysbio_torch.data import (Experiment, ExperimentBatch,
+                                      Measurement)
+    from tpusysbio_torch.model import library
+    from tpusysbio_torch.project import ParameterMap, Project
+
+    mapk = library.mapk_huang_ferrell(device="cuda")
+    p_true = library.mapk_true_params(device="cpu").numpy()
+    pt = torch.as_tensor(p_true, device="cuda")[None]
+
+    def f(t, y):
+        return mapk.rhs(t.reshape(1), y[None], pt)[0]
+
+    y0 = mapk.y0(pt)[0].cpu().numpy()
+    t_eval = np.linspace(0.0, 100.0, 11)
+    t0 = time.perf_counter()
+    ours = compat.solve_ivp(f, (0.0, 100.0), y0, method="BDF", t_eval=t_eval,
+                            rtol=1e-8, atol=1e-12, device="cuda")
+    wall = time.perf_counter() - t0
+    ref = scipy_mapk(p_true, 100.0, t_eval=t_eval)
+    err = float(np.max(np.abs(ours.y - ref.y)) / np.max(np.abs(ref.y)))
+    print(f"[compat] solve_ivp('BDF') on the MAPK-22 RHS (an unbatched torch "
+          f"function) at rtol 1e-8: {wall:.2f} s, status {ours.status}, nfev "
+          f"{ours.nfev}, nlu {ours.nlu}; {err:.3e} of max |y| from SciPy's "
+          f"BDF at rtol 1e-10 (bound 1e-6)", flush=True)
+    check(ours.status == 0 and err <= 1e-6, "compat: solve_ivp on MAPK-22")
+
+    def decay(t, y):
+        return torch.stack([-0.5 * y[0] + 40.0 * (y[1] - y[0]),
+                            -40.0 * (y[1] - y[0]) - 0.1 * y[1]])
+
+    def decay_np(t, y):
+        return np.asarray([-0.5 * y[0] + 40.0 * (y[1] - y[0]),
+                           -40.0 * (y[1] - y[0]) - 0.1 * y[1]])
+
+    def event(t, y):
+        return y[0] - 0.5
+
+    event.terminal, event.direction = True, -1.0
+    ours = compat.solve_ivp(decay, (0.0, 5.0), [1.0, 0.0], method="BDF",
+                            events=[event], rtol=1e-8, atol=1e-10,
+                            device="cuda")
+    ref = si.solve_ivp(decay_np, (0.0, 5.0), [1.0, 0.0], method="BDF",
+                       events=[event], rtol=1e-10, atol=1e-12)
+    ev_err = abs(ours.t[-1] - ref.t[-1]) / ref.t[-1]
+    print(f"[compat] terminal event, t_eval=None: the grid ends at "
+          f"{float(ours.t[-1])!r} = t_event {float(ours.t_events[0][0])!r} "
+          f"(SciPy {float(ref.t[-1])!r}, {ev_err:.2e}), y there "
+          f"{ours.y[:, -1].tolist()}", flush=True)
+    check(ours.status == 1 and ours.t[-1] == ours.t_events[0][0]
+          and ev_err <= 1e-6 and abs(ours.y[0, -1] - 0.5) <= 1e-7,
+          "compat: the terminal event's grid")
+
+    mm = library.michaelis_menten(device="cuda")
+    pm = torch.as_tensor(library.MM_TRUE_PARAMS, device="cuda")[None]
+    t_mm = np.linspace(0.0, 10.0, 21)
+    ys = compat.odeint(lambda y, t: mm.rhs(t.reshape(1), y[None], pm)[0],
+                       [1.0, 0.0, 0.0], t_mm, device="cuda")
+    mm_cpu = library.michaelis_menten(device="cpu")
+    pm_cpu = torch.as_tensor(library.MM_TRUE_PARAMS)[None]
+    ys_ref = si.odeint(lambda y, t: mm_cpu.rhs(
+        torch.full((1,), t, dtype=torch.float64), torch.as_tensor(y)[None],
+        pm_cpu)[0].numpy(), [1.0, 0.0, 0.0], t_mm)
+    ode_err = float(np.max(np.abs(ys - ys_ref)))
+    print(f"[compat] odeint on MM-3: {ode_err:.3e} from SciPy's odeint "
+          f"(bound 1e-6)", flush=True)
+    check(ode_err <= 1e-6, "compat: odeint on MM-3")
+
+    # an MM-3 fit: the port's Project gives residuals and the Jacobian to
+    # both optimizers (on the card to the facades, on the CPU to SciPy);
+    # each side keeps its last evaluation, so a Jacobian at the θ of the
+    # residuals just computed costs no second integration
+    t_d = np.linspace(0.2, 2.0, 10)
+    sim = mm_cpu.simulate(library.MM_TRUE_PARAMS[None], (0.0, 2.0), t_d,
+                          config=SolverConfig(rtol=1e-10, atol=1e-12),
+                          device="cpu").ys[0].numpy()
+    rng = np.random.default_rng(0)
+    data = sim + rng.normal(scale=0.01, size=sim.shape)
+    meas = tuple(Measurement(i, t_d, data[:, i], np.full(10, 0.01))
+                 for i in (0, 2))
+    names = mm.param_names
+
+    def project(device):
+        model = library.michaelis_menten(device=device)
+        pmap = ParameterMap.create(names, 1, shared=tuple(names[:3]),
+                                   fixed={"E0": library.MM_TRUE_PARAMS[3]},
+                                   device=device)
+        batch = ExperimentBatch.from_experiments(
+            [Experiment("mm", meas)], device=device)
+        return Project(model=model, pmap=pmap, batch=batch,
+                       config=SolverConfig(rtol=1e-5, atol=1e-8))
+
+    proj, proj_cpu = project("cuda"), project("cpu")
+
+    def last_of(pr):
+        memo = {}
+
+        def rj(th):
+            th = torch.as_tensor(th, dtype=torch.float64)
+            key = tuple(th.tolist())
+            if key not in memo:
+                memo.clear()
+                memo[key] = pr.residuals_and_jacobian(
+                    th.to(pr.batch.device)[None])
+            return memo[key]
+
+        return rj
+
+    rj_dev, rj_cpu = last_of(proj), last_of(proj_cpu)
+
+    def r_dev(th):
+        return rj_dev(th)[0][0]
+
+    def j_dev(th):
+        return rj_dev(th)[1][0]
+
+    def r_np(th):
+        return rj_cpu(th)[0][0].numpy()
+
+    def j_np(th):
+        return rj_cpu(th)[1][0].numpy()
+
+    x0 = np.log(library.MM_TRUE_PARAMS[:3]) + np.asarray([0.1, -0.1, 0.05])
+    lb, ub = x0 - 0.5, x0 + 0.5
+    t0 = time.perf_counter()
+    ours = compat.least_squares(r_dev, x0, jac=j_dev, bounds=(lb, ub),
+                                loss="soft_l1", device="cuda")
+    ls_s = time.perf_counter() - t0
+    ref = so.least_squares(r_np, x0, jac=j_np, bounds=(lb, ub),
+                           loss="soft_l1")
+    x_err = float(np.max(np.abs(ours.x - ref.x)))
+    c_rel = abs(ours.cost - ref.cost) / ref.cost
+    t0 = time.perf_counter()
+    lx, ier = compat.leastsq(r_dev, x0, Dfun=j_dev, device="cuda")
+    lsq_s = time.perf_counter() - t0
+    rx, rier = so.leastsq(r_np, x0, Dfun=j_np)
+    lx_err = float(np.max(np.abs(lx - rx)))
+    print(f"[compat] MM-3 fit: least_squares(trf, bounds, soft_l1) "
+          f"{ls_s:.2f} s, nfev {ours.nfev}, x {x_err:.2e} from SciPy's "
+          f"(bound 1e-4), cost rel {c_rel:.2e} (bound 1e-6); leastsq "
+          f"{lsq_s:.2f} s, ier {ier} (SciPy {rier}), x {lx_err:.2e} "
+          f"(bound 1e-4)", flush=True)
+    check(ours.success and ref.success and x_err <= 1e-4 and c_rel <= 1e-6,
+          "compat: least_squares against SciPy")
+    check(ier in (1, 2, 3, 4) and rier in (1, 2, 3, 4) and lx_err <= 1e-4,
+          "compat: leastsq against SciPy")
+
+
+def phase_plot(card):
+    """``cli.main`` ``multistart --plot`` and ``profile --plot`` on MM-3 at
+    the smallest depth: the PNGs where matplotlib imports, else the CLI's
+    ImportError naming it."""
+    from tpusysbio_torch import cli
+
+    try:
+        import matplotlib  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    runs = (["multistart", "--model", "mm3", "--screen-iters", "1",
+             "--polish-iters", "1"],
+            ["profile", "--model", "mm3", "--n-points", "3", "--span",
+             "0.5", "--fit-iters", "1"])
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "mm3")
+        for argv in runs:
+            if not have:
+                try:
+                    cli.main(argv + ["--plot", prefix])
+                except ImportError as e:
+                    check("matplotlib" in str(e),
+                          f"plot: the ImportError does not name matplotlib: "
+                          f"{e}")
+                    continue
+                fail(f"plot: {argv[0]} --plot ran without matplotlib")
+            t0 = time.perf_counter()
+            cli.main(argv + ["--plot", prefix])
+            wall = time.perf_counter() - t0
+            names = (("_waterfall.png", "_fit.png") if argv[0] ==
+                     "multistart" else ("_profiles.png",))
+            sizes = {n: os.path.getsize(prefix + n)
+                     if os.path.exists(prefix + n) else 0 for n in names}
+            print(f"[plot] {argv[0]} --plot: {wall:.2f} s, {sizes}",
+                  flush=True)
+            check(all(s > 0 for s in sizes.values()),
+                  f"plot: {argv[0]} wrote {sizes}")
+    print(f"[plot] matplotlib imports on this machine: {have}; "
+          + ("the PNGs were written" if have else
+             "the CLI raised the ImportError naming matplotlib"), flush=True)
+
+
+def phase_surfaces(card, problem):
+    """The model and data surfaces' phases: their launches by path, and
+    [petab-mapk22]'s timing function."""
+    import torch
+
+    try:
+        import sympy
+        sympy_version = sympy.__version__
+    except ImportError:
+        fail("sympy is not installed: the SBML and PEtab surfaces need it")
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    print(f"[surfaces] torch {torch.__version__}, sympy {sympy_version}, "
+          f"matplotlib imports: {have_mpl}", flush=True)
+    launches, laps = {}, Laps()
+    from tpusysbio_torch.linalg import gpu_lu
+
+    launches["sbml"] = phase_sbml(card)
+    laps("sbml")
+    launches["petab-mapk22"], petab_timed = phase_petab_mapk22(card, problem)
+    laps("petab-mapk22")
+    gpu_lu.reset_launches()
+    phase_compat(card)
+    launches["compat"] = dict(gpu_lu.LAUNCHES)
+    laps("compat")
+    gpu_lu.reset_launches()
+    phase_plot(card)
+    launches["plot"] = dict(gpu_lu.LAUNCHES)
+    laps("plot")
+    laps.report("the model and data surfaces")
+    return launches, petab_timed
 
 
 def jakstat_screen():
@@ -3045,6 +3868,103 @@ def phase_cli_paths(card, depth, ensemble_iters, profile_fit_iters):
     return launches
 
 
+CLI_GROUP_FLAG = "--cli-group"
+CLI_GROUP_TIMEOUT = 1100.0   # seconds from the start to the CLI group's end
+
+
+def start_cli_group(launches_path):
+    """``cli_group_main`` in a second process on the same card, its output
+    on this one's: every path is host-bound (the card idle ~95%, PERF.md
+    §5), and in one process the whole took 1013-1406 s against the 1200 s
+    limit (PERF.md §4). It writes its launches by path to
+    ``launches_path``."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             CLI_GROUP_FLAG, launches_path], cwd=ROOT)
+
+
+def watch_cli_group(proc):
+    """Fail at once where the CLI group has failed (run at every lap)."""
+    code = proc.poll()
+    if code not in (None, 0):
+        fail(f"the CLI group exited with {code}")
+
+
+def join_cli_group(proc, launches_path, t_start):
+    """Wait for the CLI group, check its exit code and return its
+    launches by path."""
+    try:
+        code = proc.wait(timeout=max(
+            1.0, CLI_GROUP_TIMEOUT - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        code = None
+    check(code == 0, f"the CLI group exited with {code}")
+    with open(launches_path) as fh:
+        return json.load(fh)
+
+
+def cli_group_main(launches_path):
+    """The second process: the CLI paths, the pulse, pre-equilibration and
+    sampling paths, their laps and launches."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    sys.path.insert(0, ROOT)
+    import tpusysbio_torch  # noqa: F401  (sets true-f32 matmuls)
+    from tpusysbio_torch.linalg import _build, gpu_lu
+
+    gpu_lu._LAYOUT = "minor"
+    card = phase_device()
+    _build.load()
+    laps = Laps()
+    launches = phase_cli_paths(card, CLI_DEPTH, ENSEMBLE_ITERS,
+                               PROFILE_FIT_ITERS)
+    laps("cli-*, jakstat-ensemble, profile-mm3")
+    launches["pulse"] = phase_pulse(card, PULSE_FIT_ITERS)
+    laps("pulse")
+    launches["preeq"] = phase_preeq(card)
+    laps("preeq")
+    launches["sample-mm3"] = phase_sample_mm3(card, SAMPLE_STEPS, SAMPLE_BURN,
+                                              SAMPLE_FIT_ITERS)
+    laps("sample-mm3")
+    laps.report("the CLI group (a process of its own)")
+    with open(launches_path, "w") as fh:
+        json.dump(launches, fh)
+
+
+def parent_paths(card, laps):
+    """The paths of the first process that run beside the CLI group: the
+    main path, the fit and EGFR paths, the small models' golden runs, the
+    TRF path, the other steppers and the surfaces."""
+    l_main, run = phase_main_path()
+    laps("main")
+    (l_fit, l_screen, l_polish), problem, fit_top = phase_fit()
+    laps("fit")
+    l_major = phase_fit_major(problem)
+    laps("fit-major")
+    l_egfr_sens, egfr = phase_egfr_sens(card)
+    laps("egfr-sens")
+    l_egfr_fit = phase_egfr_fit(card, egfr)
+    laps("egfr-fit")
+    l_egfr_major = phase_egfr_major(egfr)
+    laps("egfr-major")
+    phase_golden_small(card)
+    laps("golden-small")
+    l_small = {"fit-trf": phase_fit_trf(card, problem, fit_top,
+                                        FIT_TRF_ITERS)}
+    laps("fit-trf")
+    l_small.update(phase_other_steppers(card, problem))
+    laps("the other steppers")
+    l_surf, petab_timed = phase_surfaces(card, problem)
+    l_small.update(l_surf)
+    laps("the model and data surfaces")
+    return l_small, problem, egfr, run, petab_timed, (
+        l_main, (l_fit, l_screen, l_polish), l_major, l_egfr_sens,
+        l_egfr_fit, l_egfr_major)
+
+
 def main():
     try:
         import torch
@@ -3063,6 +3983,7 @@ def main():
     # every phase names the layout it runs; none takes it from the caller's
     # environment
     gpu_lu._LAYOUT = "minor"
+    t_start = time.perf_counter()
     laps = Laps()
     card = phase_device()
     phase_build()
@@ -3073,39 +3994,35 @@ def main():
                phase_k3(model, rng)]
     phase_floor()
     laps("K1, K2, K3, floor")
-    l_main, run = phase_main_path()
-    laps("main")
-    (l_fit, l_screen, l_polish), problem, fit_top = phase_fit()
-    laps("fit")
-    l_major = phase_fit_major(problem)
-    laps("fit-major")
-    l_egfr_sens, egfr = phase_egfr_sens(card)
-    laps("egfr-sens")
-    l_egfr_fit = phase_egfr_fit(card, egfr)
-    laps("egfr-fit")
-    l_egfr_major = phase_egfr_major(egfr)
-    laps("egfr-major")
-    phase_golden_small(card)
-    laps("golden-small")
+    with tempfile.TemporaryDirectory() as group_dir:
+        group_launches = os.path.join(group_dir, "launches.json")
+        group = start_cli_group(group_launches)
+        Laps.watch = lambda: watch_cli_group(group)
+        try:
+            l_small, problem, egfr, run, petab_timed, rest = parent_paths(
+                card, laps)
+        except BaseException:
+            group.kill()
+            raise
+        Laps.watch = None
+        l_small.update(join_cli_group(group, group_launches, t_start))
+    laps("the CLI group's remainder")
+    # with no second process: the banded path and its timings, the
+    # imported model's evaluation beside the native one, and the kernel
+    # timings at n = 2-6 and n = 44
+    gpu_lu.reset_launches()
+    phase_banded(card)
+    l_small["banded"] = dict(gpu_lu.LAUNCHES)
+    laps("banded")
+    petab_timed()
+    laps("petab-mapk22 timed")
     k1_small, k2_small = phase_small_kernels(rng)
     kernels[0]["small_n"], kernels[1]["small_n"] = k1_small, k2_small
     kernels[2]["small_n"] = {}
-    laps("K1-small, K2-small")
-    l_small = phase_cli_paths(card, CLI_DEPTH, ENSEMBLE_ITERS,
-                              PROFILE_FIT_ITERS)
-    laps("cli-*, jakstat-ensemble, profile-mm3")
-    l_small["pulse"] = phase_pulse(card, PULSE_FIT_ITERS)
-    laps("pulse")
-    l_small["preeq"] = phase_preeq(card)
-    laps("preeq")
-    l_small["fit-trf"] = phase_fit_trf(card, problem, fit_top, FIT_TRF_ITERS)
-    laps("fit-trf")
-    l_small["sample-mm3"] = phase_sample_mm3(card, SAMPLE_STEPS, SAMPLE_BURN,
-                                             SAMPLE_FIT_ITERS)
-    laps("sample-mm3")
-    l_steppers, (k1_n44, k2_n44) = phase_other_steppers(card, problem, rng)
-    l_small.update(l_steppers)
-    laps("the other steppers")
+    k1_n44, k2_n44 = phase_n44_kernels(rng)
+    laps("K1-small, K2-small, K1-n44, K2-n44")
+    l_main, (l_fit, l_screen, l_polish), l_major = rest[:3]
+    l_egfr_sens, l_egfr_fit, l_egfr_major = rest[3:]
     laps.report("the whole script")
     if "--profile" in sys.argv[1:]:
         phase_profile(run, "one main-path batch")
@@ -3182,4 +4099,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [CLI_GROUP_FLAG]:
+        cli_group_main(sys.argv[2])
+    else:
+        main()

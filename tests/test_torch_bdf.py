@@ -164,24 +164,23 @@ def test_jacfwd_fallback_matches_closed_form_jacobian():
 
 
 @pytest.mark.parametrize("kw", [dict(linear_solver="banded",
-                                     jac_bandwidth=(1, 1)),
+                                     jac_bandwidth=(14, 14)),
                                 dict(dense_window=4)])
 def test_unported_options_raise(kw):
-    """``linear_solver='banded'`` is still to port (ROADMAP Queue 1 item
-    13) and raises. ``dense_window`` is ported since: its case runs, and
-    where its step cap binds it stays within rtol 1e-5 of the full grid
-    (tests/test_torch_dense_window.py holds it against the reference)."""
+    """Both options are ported since. ``dense_window``: where its step cap
+    binds it stays within rtol 1e-5 of the full grid
+    (tests/test_torch_dense_window.py holds it against the reference).
+    ``linear_solver='banded'`` (ROADMAP item 13) at MAPK-22's bandwidth
+    (14, 14) (its Jacobian's, in the library's species order): the
+    unpivoted banded LU of the Newton matrix, within rtol 1e-5 of the
+    default run (tests/test_torch_banded.py holds the solver against the
+    reference)."""
     model = library.mapk_huang_ferrell(device="cpu")
     t_eval = np.linspace(*T_SPAN, 41)
-    if "dense_window" in kw:
-        win = model.simulate(_bench_params(1), T_SPAN, t_eval,
-                             config=SolverConfig(**kw), device="cpu")
-        full = model.simulate(_bench_params(1), T_SPAN, t_eval,
-                              config=SolverConfig(), device="cpu")
-        assert win.status.tolist() == full.status.tolist() == [STATUS_DONE]
-        np.testing.assert_allclose(win.ys.numpy(), full.ys.numpy(),
-                                   rtol=1e-5, atol=1e-9)
-        return
-    with pytest.raises(NotImplementedError):
-        model.simulate(_bench_params(1), T_SPAN, t_eval,
-                       config=SolverConfig(**kw), device="cpu")
+    got = model.simulate(_bench_params(1), T_SPAN, t_eval,
+                         config=SolverConfig(**kw), device="cpu")
+    full = model.simulate(_bench_params(1), T_SPAN, t_eval,
+                          config=SolverConfig(), device="cpu")
+    assert got.status.tolist() == full.status.tolist() == [STATUS_DONE]
+    np.testing.assert_allclose(got.ys.numpy(), full.ys.numpy(),
+                               rtol=1e-5, atol=1e-9)

@@ -367,19 +367,33 @@ def test_cli_fit_example_at_a_cut_depth(capsys):
 @pytest.mark.parametrize("argv,item", [
     (["simulate", "--solver", "dopri5"], "12"),
     (["sens", "--solver", "radau"], "12"),
-    (["multistart", "--model", "mm3", "--plot", "x"], "14"),
-    (["profile", "--plot", "x"], "14"),
+    (["multistart", "--model", "mm3", "--starts", "4", "--top-k", "2",
+      "--screen-iters", "1", "--polish-iters", "1", "--plot", "x"], "14"),
+    (["profile", "--model", "mm3", "--n-points", "1", "--fit-iters", "1",
+      "--plot", "x"], "14"),
     (["simulate", "--solver", "rosenbrock"], "12"),
     (["bench"], "15"),
 ])
-def test_cli_unported_paths_raise(argv, item):
-    """``--plot`` (item 14) and ``bench`` (item 15) still raise. The
-    steppers of item 12 are ported since: their cases run to status 1
-    (tests/test_torch_cli_solvers.py holds them against the JAX CLI)."""
+def test_cli_unported_paths_raise(argv, item, tmp_path):
+    """``bench`` (item 15) still raises. The steppers of item 12 are
+    ported since: their cases run to status 1
+    (tests/test_torch_cli_solvers.py holds them against the JAX CLI).
+    ``--plot`` (item 14's surfaces) is ported since: at the smallest depth
+    its cases write the reference's PNG files, non-empty
+    (tests/test_torch_viz.py holds the plotted data against the JAX
+    package's)."""
     if item == "12":
         out = cli.main(["--cpu"] + argv)
         assert out["record"]["status"] == 1
         assert np.isfinite(out["ys"]).all()
+        return
+    if item == "14":
+        prefix = str(tmp_path / "x")
+        cli.main(["--cpu"] + argv[:-1] + [prefix])
+        names = (["_waterfall.png", "_fit.png"] if argv[0] == "multistart"
+                 else ["_profiles.png"])
+        for name in names:
+            assert os.path.getsize(prefix + name) > 0, name
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         cli.main(["--cpu"] + argv)

@@ -574,5 +574,15 @@ def test_lu_pivots_match_reference():
 
 
 def test_banded_kind_is_queued():
-    with pytest.raises(NotImplementedError):
-        make_linear_solver("banded", (1, 1))
+    """``'banded'`` is ported (ROADMAP item 13): its factor/solve pair
+    solves a tridiagonal system as ``torch.linalg.solve`` does
+    (tests/test_torch_banded.py holds it against the reference)."""
+    rng = np.random.default_rng(3)
+    a = np.diag(4.0 + rng.random(8)) + np.diag(rng.random(7), 1) \
+        + np.diag(rng.random(7), -1)
+    b = rng.standard_normal((2, 8, 3))
+    factor, solve = make_linear_solver("banded", (1, 1))
+    A = torch.as_tensor(np.stack([a, a + np.eye(8)]))
+    x = solve(factor(A), torch.as_tensor(b))
+    np.testing.assert_allclose(x.numpy(), torch.linalg.solve(
+        A, torch.as_tensor(b)).numpy(), rtol=1e-12, atol=1e-13)

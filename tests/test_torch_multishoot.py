@@ -59,7 +59,7 @@ def test_windows_match_serial_integration():
     model, _ = _port_problem(4, 8.0)
     p = torch.as_tensor(P_LV)
     y0 = model.y0(p[None])
-    bounds = window_grid((0.0, 8.0), 4)
+    bounds = window_grid((0.0, 8.0), 4, device="cpu")
     f1 = lambda t, y: model.rhs(t, y, p[None])  # noqa: E731
     ref = bdf_solve(f1, (0.0, 8.0), y0, bounds[1:],
                     config=SolverConfig(**TOL)).ys[0]
@@ -91,7 +91,7 @@ def test_init_z_and_defects_match_reference():
 def test_defects_vanish_at_serial_states():
     model, prob = _port_problem(4, 8.0)
     p = torch.as_tensor(P_LV)
-    bounds = window_grid((0.0, 8.0), 4)
+    bounds = window_grid((0.0, 8.0), 4, device="cpu")
     ref = bdf_solve(lambda t, y: model.rhs(t, y, p[None]), (0.0, 8.0),
                     model.y0(p[None]), bounds[1:-1],
                     config=SolverConfig(**TOL))

@@ -27,8 +27,11 @@ Differences from the reference:
 - ``sample``'s chain takes its draws from a ``torch.Generator`` seeded by
   ``--seed`` (its walkers start from the reference's numpy ball, so they
   equal the JAX CLI's; the chains differ);
-- not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-  item: ``--plot`` and ``bench``.
+- ``--plot PREFIX`` (``multistart``, ``profile``) writes the reference's
+  PNG files through ``viz.py``; without matplotlib it raises the
+  ``ImportError`` naming it before any fit runs;
+- not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+  ``bench``.
 """
 
 from __future__ import annotations
@@ -252,7 +255,9 @@ def cmd_multistart(args):
                                  "multistart setting")
             setattr(args, key, v)
     if args.plot:
-        _unported("--plot (viz.py)", "14")
+        from tpusysbio_torch import viz
+
+        viz._mpl()
     dev = _device(args)
 
     model, batch, pmap, free, theta_true = _synth_problem(args, dev)
@@ -329,6 +334,15 @@ def cmd_multistart(args):
                  status=ranked.status.cpu().numpy(), param_sigma=sigma,
                  free=np.asarray(free))
         print(f"ranked results saved to {args.out}", file=sys.stderr)
+    if args.plot:
+        from tpusysbio_torch import viz
+
+        viz.plot_waterfall(screen).savefig(
+            f"{args.plot}_waterfall.png", dpi=110)
+        viz.plot_fit(proj_tight, ranked.theta[0]).savefig(
+            f"{args.plot}_fit.png", dpi=110)
+        print(f"plots saved to {args.plot}_waterfall.png / _fit.png",
+              file=sys.stderr)
     return {"record": rec, "wall": wall, "cost_at_truth": cost_truth,
             "polish": polish, "screen": screen, "starts": starts,
             "project": proj_tight, "screen_project": proj_screen,
@@ -346,7 +360,9 @@ def cmd_profile(args):
     from tpusysbio_torch.project import Project
 
     if args.plot:
-        _unported("--plot (viz.py)", "14")
+        from tpusysbio_torch import viz
+
+        viz._mpl()
     dev = _device(args)
     model, batch, pmap, free, theta_true = _synth_problem(args, dev)
     cfg = SolverConfig(rtol=args.rtol, atol=args.atol,
@@ -392,6 +408,12 @@ def cmd_profile(args):
                  status=status, cost_opt=float(prof.cost_opt), ci=ci,
                  free=np.asarray(free))
         print(f"profile curves saved to {args.out}", file=sys.stderr)
+    if args.plot:
+        from tpusysbio_torch import viz
+
+        viz.plot_profiles(prof, names=free, level=args.level).savefig(
+            f"{args.plot}_profiles.png", dpi=110)
+        print(f"plot saved to {args.plot}_profiles.png", file=sys.stderr)
     return {"record": rec, "wall": wall, "ci": ci, "costs": costs,
             "profile": prof, "theta_hat": theta_hat}
 
@@ -530,7 +552,7 @@ def main(argv=None):
     p_ms.add_argument("--out", default=None,
                       help="save ranked results to .npz")
     p_ms.add_argument("--plot", default=None, metavar="PREFIX",
-                      help="(not ported)")
+                      help="save PREFIX_waterfall.png + PREFIX_fit.png")
     p_ms.set_defaults(fn=cmd_multistart)
 
     p_pl = sub.add_parser(
@@ -558,7 +580,7 @@ def main(argv=None):
     p_pl.add_argument("--out", default=None,
                       help="save profile curves to .npz")
     p_pl.add_argument("--plot", default=None, metavar="PREFIX",
-                      help="(not ported)")
+                      help="save PREFIX_profiles.png")
     p_pl.set_defaults(fn=cmd_profile)
 
     p_mc = sub.add_parser(

@@ -9,7 +9,8 @@ hand-written CUDA kernels of ``linalg/gpu_lu.py``.
 
 ``load_config`` reads the canonical run files (``configs/*.yaml``) and JSON.
 YAML goes through the small reader ``parse_yaml`` below, which covers the
-subset those files use, so the port needs no YAML package.
+subset those files and PEtab v1 problem files use, so the port needs no
+YAML package.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ class SolverConfig:
     mixed_precision: bool = False
     # 'full' or 'f32': precision of the sensitivity columns only.
     sens_precision: str = "full"
-    # 'lu' | 'inv' | 'inv32' | 'pallas' (CUDA kernels) | 'banded' (not
-    # ported yet: raises)
+    # 'lu' | 'inv' | 'inv32' | 'pallas' (CUDA kernels) | 'banded' (LU in
+    # diagonal-packed storage, linalg/banded.py)
     linear_solver: str = "inv"
     # (kl, ku) bandwidth of the state Jacobian, for linear_solver='banded'
     jac_bandwidth: tuple = None
@@ -152,11 +153,13 @@ def _build(cls, d: dict):
 
 # A plain scalar of the subset: an int, a float with a dot (YAML 1.1, as
 # ``yaml.safe_load`` reads it: ``1.0e-6`` is a float, ``1e-6`` a string),
-# true/false/null, or a word. Words that YAML 1.1 would read as something
-# else (yes, on, .inf, quoted text, ...) are outside the subset.
+# true/false/null, or a word: a letter or ``_`` and then letters, digits
+# and ``_ . - /`` (file names such as ``model.xml``). Words that YAML 1.1
+# would read as something else (yes, on, .inf, quoted text, ...) are
+# outside the subset.
 _INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)$")
 _FLOAT = re.compile(r"[-+]?(?:[0-9]+\.[0-9]*|\.[0-9]+)(?:[eE][-+][0-9]+)?$")
-_WORD = re.compile(r"[A-Za-z_][A-Za-z0-9_]*$")
+_WORD = re.compile(r"[A-Za-z_][A-Za-z0-9_./-]*$")
 _CONSTANTS = {"true": True, "false": False, "null": None, "~": None}
 _YAML11_WORDS = {"y", "n", "yes", "no", "on", "off", "true", "false", "null"}
 
@@ -199,15 +202,30 @@ def _flow(text: str, lists_only: bool = False):
     return out
 
 
+def _entry(line: str, n: int, raw: str):
+    """``key: value`` of one line; ``value`` is the raw text after the
+    colon."""
+    key, sep, val = line.partition(":")
+    if not sep or (val and not val.startswith(" ")):
+        raise ValueError(f"line {n}: expected 'key: value': {raw!r}")
+    return _scalar(key), val
+
+
 def parse_yaml(text: str) -> dict:
-    """Parse the YAML subset of ``configs/*.yaml``: ``#`` comments, a
-    mapping whose values are scalars, one-level flow lists or mappings of
-    scalars, or sections of ``key: value`` lines one level deeper.
-    Anything else (block lists, deeper nesting, anchors, quotes,
-    multi-line scalars) raises ``ValueError``. Equal to ``yaml.safe_load``
-    on that subset."""
+    """Parse the YAML subset of ``configs/*.yaml`` and of PEtab v1 problem
+    files: ``#`` comments, a mapping whose values are scalars, one-level
+    flow lists or mappings of scalars, sections of ``key: value`` lines
+    one level deeper, or block lists (``- key: value`` items) of one-level
+    mappings whose values are scalars or flow lists of scalars. Anything
+    else (lists of scalars, deeper nesting, anchors, quotes, multi-line
+    scalars) raises ``ValueError``. Equal to ``yaml.safe_load`` on that
+    subset."""
     root: dict = {}
-    section = None          # (indent or None until its first line, key)
+    # the open section: [indent or None until its first line, key, kind]
+    # with kind 'map' or 'list'; item: [key indent, mapping] of the open
+    # list item
+    section = None
+    item = None
     for n, raw in enumerate(text.splitlines(), 1):
         line = re.sub(r"(^|\s)#.*", "", raw).rstrip()
         if not line:
@@ -216,20 +234,44 @@ def parse_yaml(text: str) -> dict:
             raise ValueError(f"line {n}: a tab is outside the supported "
                              "subset")
         indent = len(line) - len(line.lstrip(" "))
-        key, sep, val = line.strip().partition(":")
-        if not sep or (val and not val.startswith(" ")):
-            raise ValueError(f"line {n}: expected 'key: value': {raw!r}")
-        key = _scalar(key)
+        body = line.strip()
+        if body == "-" or body.startswith("- "):
+            if section is None or section[0] not in (None, indent) or (
+                    section[0] is not None and section[2] != "list"):
+                raise ValueError(f"line {n}: a block list outside a "
+                                 "top-level key's value")
+            if section[0] is None:
+                section[0], section[2] = indent, "list"
+                root[section[1]] = []
+            rest = body[1:]
+            pad = len(rest) - len(rest.lstrip(" "))
+            key, val = _entry(rest.strip(), n, raw)
+            if not val.strip():
+                raise ValueError(f"line {n}: a list item must be a "
+                                 "one-level mapping of scalars and lists")
+            item = [indent + 1 + pad, {key: _flow(val, lists_only=True)}]
+            root[section[1]].append(item[1])
+            continue
+        key, val = _entry(body, n, raw)
         if indent == 0:
             if key in root:
                 raise ValueError(f"line {n}: duplicate key {key!r}")
             root[key] = _flow(val) if val.strip() else None
-            section = None if val.strip() else (None, key)
+            section = None if val.strip() else [None, key, None]
+            item = None
             continue
         if section is None:
             raise ValueError(f"line {n}: indented line outside a section")
+        if section[2] == "list":
+            if item is None or indent != item[0] or not val.strip():
+                raise ValueError(f"line {n}: a list item must be a "
+                                 "one-level mapping of scalars and lists")
+            if key in item[1]:
+                raise ValueError(f"line {n}: duplicate key {key!r}")
+            item[1][key] = _flow(val, lists_only=True)
+            continue
         if section[0] is None:
-            section = (indent, section[1])
+            section[0], section[2] = indent, "map"
             root[section[1]] = {}
         if indent != section[0] or not val.strip():
             raise ValueError(f"line {n}: nesting deeper than one level is "

@@ -11,7 +11,9 @@ structure for a given n, so the stepper can merge it per member with
 - ``'inv32'``  f32 LU inverse + two Newton-Schulz steps in the input dtype;
 - ``'pallas'`` the hand-written CUDA kernels of ``gpu_lu.py`` (the name is
   the reference's): f32 Gauss-Jordan inverse, and for f64 the lazy
-  factorization with the fused refined solve.
+  factorization with the fused refined solve;
+- ``'banded'`` LU without pivoting in diagonal-packed storage
+  (``banded.py``) for Jacobians of bandwidth ``(kl, ku)``.
 """
 
 from __future__ import annotations
@@ -64,7 +66,19 @@ def make_linear_solver(kind: str,
         return factor, solve
 
     if kind == "banded":
-        raise NotImplementedError(
-            "linear_solver='banded' is not ported yet (ROADMAP.md)")
+        from tpusysbio_torch.linalg import banded as _banded
+
+        if bandwidth is None:
+            raise ValueError("kind='banded' requires bandwidth=(kl, ku)")
+        kl, ku = bandwidth
+
+        def factor(a):
+            return _banded.banded_factor(
+                _banded.band_from_dense(a, kl, ku), kl, ku)
+
+        def solve(fact, b):
+            return _banded.banded_solve(fact, b, kl, ku)
+
+        return factor, solve
 
     raise ValueError(f"unknown linear solver kind {kind!r}")

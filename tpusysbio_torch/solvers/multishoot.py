@@ -20,14 +20,16 @@ from typing import Callable, Optional
 
 import torch
 
+from tpusysbio_torch import resolve_device
 from tpusysbio_torch.config import SolverConfig
 from tpusysbio_torch.solvers.bdf import bdf_solve
 
 
-def window_grid(t_span, n_windows: int, dtype=torch.float64, device="cpu"):
-    """Equispaced window boundaries: (K+1,) times."""
+def window_grid(t_span, n_windows: int, dtype=torch.float64, device="cuda"):
+    """Equispaced window boundaries: (K+1,) times on ``device`` (the card
+    by default; ``device="cpu"`` for the CPU)."""
     return torch.linspace(float(t_span[0]), float(t_span[1]), n_windows + 1,
-                          dtype=dtype, device=device)
+                          dtype=dtype, device=resolve_device(device))
 
 
 def integrate_windows(
