@@ -159,6 +159,29 @@ first failed check:
    the kernel timings at n = 2-6 (``[K1-small]``/``[K2-small]``) and
    n = 44 (``[K1-n44]``/``[K2-n44]``).
 
+19. multi-device, two ranks of a gloo process group sharing the card
+   (``chip_smoke.py --mesh-rank ...`` processes; they load the kernels
+   that phase 2 built, and each writes its launches to a file that the
+   phase sums): ``[mesh-fit]``, right after phase 8, phase 7's problem and
+   starts through ``TwoPhaseDriver(mesh=)`` (128 starts screened a rank,
+   the gathered screen ranked on both, the 16 best polished 8 + 8): the
+   ranks' gathered results equal bit for bit, the screened statuses, the
+   polished set and statuses phase 7's, the ranked polished costs phase
+   7's to ``MESH_ROUNDING_BOUND`` (1e-4: the ranks fit half batches, whose
+   members round otherwise than in the whole batch), K1 and K2 launched
+   in each rank, the starts' digest equal on both;
+   ``[cli-mapk22-mesh]``, in the CLI group after ``[cli-mapk22]`` (which
+   also runs the same fit by two blocks of the starts and of the top_k in
+   one process, ``block_reference``), ``multistart --config
+   configs/mapk22.yaml`` (its ``mesh:`` section) at ``CLI_DEPTH`` as
+   ``torchrun --nproc_per_node=2`` launches it (the CLI joins the group
+   from the environment): rank 0 prints the record, rank 1 nothing; both
+   ranks' screens and polishes equal each other's and the block
+   reference's bit for bit (every start's screened status and cost, the
+   polished starts, statuses and costs); against ``[cli-mapk22]``'s whole
+   batch the best cost to ``CLI_MESH_BOUND`` (1e-3) and at most the cost
+   at truth; K1 and K2 launched in each rank.
+
 ``phase_egfr_10k(card, n_starts=10000)``, not called by ``main()``, is
 config 5 at its literal scale (``bench/experiments/egfr_10k.py``) through
 ``TwoPhaseDriver``, in a call of its own.
@@ -880,7 +903,7 @@ def build_fit_problem(device):
 
 
 def two_phase(tight, screen, top_k, screen_iters, polish_iters,
-               on_polish=None):
+               on_polish=None, mesh=None):
     from tpusysbio_torch import FitConfig
     from tpusysbio_torch.fit import TwoPhaseDriver
 
@@ -895,7 +918,7 @@ def two_phase(tight, screen, top_k, screen_iters, polish_iters,
         FitConfig(max_iter=screen_iters, eval_mode="lockstep", ftol=1e-4,
                   xtol=1e-4),
         FitConfig(max_iter=polish_iters, eval_mode="lockstep"), top_k,
-        iter_chunk=FIT_ITER_CHUNK, screen_channels="rank",
+        mesh=mesh, iter_chunk=FIT_ITER_CHUNK, screen_channels="rank",
         run_tag="headline_mapk22")
 
 
@@ -1040,8 +1063,16 @@ def phase_fit():
           f"fit CPU cross-check: tight evaluation {tv_rel:.3e}, "
           f"{tj_rel:.3e}")
     check(po_rel <= 1e-4, f"fit CPU cross-check: polish {po_rel:.3e}")
+    ranked_polish = polish.ranked()
+    fit_ref = {"screen_status": scr.status.cpu().numpy(),
+               "screen_cost": scr.cost.cpu().numpy(),
+               "polish_theta0": ranked_polish.theta0.cpu().numpy(),
+               "polish_cost": ranked_polish.cost.cpu().numpy(),
+               "polish_status": ranked_polish.status.cpu().numpy(),
+               "wall": wall}
     return ((launches, l_screen, l_polish),
-            (tight, screen, theta_true, starts), (polish.theta0, best_cost))
+            (tight, screen, theta_true, starts), (polish.theta0, best_cost),
+            fit_ref)
 
 
 def phase_fit_major(problem):
@@ -1603,10 +1634,12 @@ def config_path(name, tmpdir, depth):
     return out
 
 
-def phase_cli(name, card, tmpdir, depth):
+def phase_cli(name, card, tmpdir, depth, blocks=None):
     """``tpusysbio_torch.cli.main(["multistart", "--config", ...])`` in
     process: the run file's width (starts, top_k) and run settings; its LM
-    depth, or ``depth``."""
+    depth, or ``depth``. Returns the launches and the run's arrays
+    (``polish_arrays``), with ``blocks`` those of ``block_reference`` over
+    ``blocks`` blocks beside them."""
     import torch
 
     from tpusysbio_torch import cli
@@ -1679,7 +1712,74 @@ def phase_cli(name, card, tmpdir, depth):
           f"{card_cost.tolist()}, rel {rel:.3e} (bound {bound:g})",
           flush=True)
     check(rel <= bound, f"cli-{name}: CPU re-polish rel {rel:.3e}")
-    return launches
+    arrs = polish_arrays(out)
+    if blocks:
+        t0 = time.perf_counter()
+        arrs["blocks"] = block_reference(
+            out, load_config(path).run.get("iter_chunk"), blocks)
+        print(f"[cli-{name}] the same fit in {blocks} blocks of the starts "
+              f"and of the top_k (the sharded fit's reference): "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return launches, arrs
+
+
+def polish_arrays(out):
+    """A ``multistart`` run's screen and polish as numpy arrays: every
+    start's screened status and cost, and the polished members in polish
+    order, each with the index of its start. The polish starts from the
+    screened θ of the top_k starts (``_rank_order`` of the screen, as
+    ``TwoPhaseDriver.run`` ranks it), whose bits may depend on the batch
+    the screen ran in, so the start index names the member."""
+    import torch
+
+    from tpusysbio_torch.fit.multistart import _rank_order
+
+    screen, polish = out["screen"], out["polish"]
+    top = _rank_order(screen.status, screen.cost)[:polish.cost.shape[0]]
+    check(bool(torch.equal(polish.theta0, screen.theta[top])),
+          "the polish did not start from the screen's ranked top_k")
+    return {"start": top.cpu().numpy(),
+            "screen_cost": screen.cost[top].cpu().numpy(),
+            "status": polish.status.cpu().numpy(),
+            "cost": polish.cost.cpu().numpy(),
+            "all_screen_status": screen.status.cpu().numpy(),
+            "all_screen_cost": screen.cost.cpu().numpy()}
+
+
+def block_reference(out, iter_chunk, n_blocks):
+    """What ``TwoPhaseDriver(mesh=)`` computes over ``n_blocks`` ranks,
+    in one process and by other code: the screen's contiguous blocks fitted
+    one after the other and joined, ranked whole, the top_k's blocks
+    polished one after the other. Returns ``polish_arrays``' dict."""
+    import types
+
+    import torch
+
+    from tpusysbio_torch.fit import make_multistart_runner
+    from tpusysbio_torch.fit.multistart import _rank_order
+
+    def blocks(proj, config, theta, with_cov):
+        run = make_multistart_runner(
+            proj.residuals, proj.residuals_and_jacobian, config,
+            iter_chunk=iter_chunk, with_cov=with_cov)
+        parts = [run(b) for b in theta.chunk(n_blocks)]
+        return types.SimpleNamespace(**{
+            k: torch.cat([getattr(p, k) for p in parts])
+            for k in ("status", "cost", "theta")}, theta0=theta)
+
+    top_k = out["polish"].cost.shape[0]
+    screen = blocks(out["screen_project"], out["screen_config"],
+                    out["starts"], False)
+    top = _rank_order(screen.status, screen.cost)[:top_k]
+    polish = blocks(out["project"], out["polish_config"], screen.theta[top],
+                    True)
+    return polish_arrays({"screen": screen, "polish": polish})
+
+
+def by_start(arrs):
+    """A polish's (status, cost) by start index."""
+    return {int(i): (int(st), float(c)) for i, st, c in zip(
+        arrs["start"], arrs["status"], arrs["cost"])}
 
 
 def phase_jakstat_ensemble(card, max_iter):
@@ -3859,13 +3959,347 @@ def phase_profile(run, label):
 
 def phase_cli_paths(card, depth, ensemble_iters, profile_fit_iters):
     """The CLI paths; returns their launch counts by path."""
-    launches = {}
+    launches, ref = {}, {}
     with tempfile.TemporaryDirectory() as tmpdir:
         for name in CLI_CONFIGS:
-            launches[f"cli-{name}"] = phase_cli(name, card, tmpdir, depth)
+            launches[f"cli-{name}"], ref[name] = phase_cli(
+                name, card, tmpdir, depth,
+                MESH_RANKS if name == "mapk22" else None)
+        launches["cli-mapk22-mesh"] = phase_cli_mesh(
+            "mapk22", card, tmpdir, depth, ref["mapk22"])
     phase_jakstat_ensemble(card, ensemble_iters)
     launches["profile-mm3"] = phase_profile_mm3(card, profile_fit_iters)
     return launches
+
+
+# --------------------------------------------------------------------------
+# Multi-device: ranks of a process group sharing the one card
+# --------------------------------------------------------------------------
+
+MESH_RANKS = 2               # [mesh-fit], [cli-mapk22-mesh]
+MESH_RANK_FLAG = "--mesh-rank"
+MESH_TIMEOUT = 600.0         # seconds for a rank process, start-up included
+MESH_GROUP_TIMEOUT = 300.0   # the process group's own timeout
+
+
+def start_ranks(kind, rendezvous, outdir, extra=(), env=None):
+    """``mesh_rank_main`` in ``MESH_RANKS`` processes on this card; ``env``
+    maps a rank to the extra environment of its process."""
+    procs = []
+    for r in range(MESH_RANKS):
+        penv = dict(os.environ, **(env(r) if env else {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), MESH_RANK_FLAG, kind,
+             str(r), str(MESH_RANKS), rendezvous, outdir, *extra],
+            cwd=ROOT, env=penv, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def join_ranks(tag, procs, outdir):
+    """Wait for the ranks (killing all of them past ``MESH_TIMEOUT``),
+    show their error output, check their exit codes, and return their
+    standard outputs and the records they wrote."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        fail(f"{tag}: a rank ran past {MESH_TIMEOUT:.0f} s")
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print("\n".join(f"[{tag} rank {r}] {line}" for line in (
+                out.splitlines() + err.splitlines())[-60:]), flush=True)
+        check(p.returncode == 0, f"{tag}: rank {r} exited with "
+              f"{p.returncode}")
+    recs = []
+    for r in range(len(procs)):
+        with open(os.path.join(outdir, f"rank{r}.json")) as fh:
+            recs.append(json.load(fh))
+    return [out for out, _ in outs], recs
+
+
+def check_rank_launches(tag, recs):
+    """K1 and K2 launched in every rank, K3 in none; the sum by kernel."""
+    for rec in recs:
+        check_k1_k2(f"{tag} rank {rec['rank']}", rec["launches"])
+    return {k: sum(rec["launches"][k] for rec in recs)
+            for k in recs[0]["launches"]}
+
+
+# the bound on [mesh-fit]'s polished costs against [fit]'s: the ranks
+# fit half batches, and on the card a member's bits depend on the size of
+# its batch ([cli-mapk22-mesh] shows the sharded fit equal to the same fit
+# by blocks bit for bit, and not to the whole batch); the unconverged
+# polish grows that to 2.7e-6 (PERF.md §6). [fit]'s CPU cross-check holds
+# the same polish to this bound.
+MESH_ROUNDING_BOUND = 1e-4
+
+
+def phase_mesh_fit(card, fit_ref):
+    """``[fit]``'s problem and starts through ``TwoPhaseDriver(mesh=)``
+    over two ranks sharing the card (gloo): 128 starts screened a rank,
+    the gathered screen ranked on both, the 16 best polished 8 + 8. Both
+    ranks must return the same gathered results bit for bit, the screened
+    statuses, the polished set and the polished statuses ``[fit]``'s, and
+    the ranked polished costs ``[fit]``'s to ``MESH_ROUNDING_BOUND``; K1
+    and K2 launched in each rank."""
+    bound = MESH_ROUNDING_BOUND
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = start_ranks("fit", os.path.join(d, "init"), d)
+        _, recs = join_ranks("mesh-fit", procs, d)
+        wall = time.perf_counter() - t0
+        arrs = [dict(np.load(os.path.join(d, f"rank{r}.npz")))
+                for r in range(MESH_RANKS)]
+    diff = [k for k in arrs[0] if not np.array_equal(arrs[0][k], arrs[1][k])]
+    got = arrs[0]
+    s_same = bool(np.array_equal(got["screen_status"],
+                                 fit_ref["screen_status"]))
+    s_cost = got["screen_cost"]
+    s_rel = float(np.nanmax(np.abs(s_cost - fit_ref["screen_cost"])
+                            / np.abs(fit_ref["screen_cost"])))
+    ref_cost = fit_ref["polish_cost"]
+    rel = float(np.max(np.abs(got["polish_cost"] - ref_cost)
+                       / np.abs(ref_cost)))
+    bitwise = bool(np.array_equal(got["polish_cost"], ref_cost))
+    same_set = bool(np.array_equal(
+        np.sort(got["polish_theta0"], axis=0),
+        np.sort(fit_ref["polish_theta0"], axis=0)))
+    for rec in recs:
+        print(f"[mesh-fit] rank {rec['rank']} of {MESH_RANKS}: backend "
+              f"{rec['backend']}, device {rec['mesh_device']} "
+              f"({rec['device']}), TwoPhaseDriver run {rec['wall']:.2f} s "
+              f"(screen {rec['screen_seconds']:.2f} s, polish "
+              f"{rec['polish_seconds']:.2f} s); launches {rec['launches']}",
+              flush=True)
+    print(f"[mesh-fit] {card}: {FIT_STARTS} starts over {MESH_RANKS} ranks "
+          f"on one card, top_k {FIT_TOP_K} polished "
+          f"{FIT_TOP_K // MESH_RANKS} a rank, {FIT_SCREEN_ITERS} screen + "
+          f"{FIT_POLISH_ITERS} polish LM iterations: phase wall {wall:.2f} "
+          f"s with the ranks' start-up ([fit]'s run in one process: "
+          f"{fit_ref['wall']:.2f} s); the ranks' gathered results differ in "
+          f"{diff or 'nothing'}; screened statuses [fit]'s: {s_same} ("
+          f"{int(np.isfinite(s_cost).sum())}/{FIT_STARTS} finite costs, "
+          f"largest rel {s_rel:.3e} from [fit]'s); polished sets "
+          f"[fit]'s: {same_set}; ranked polished costs "
+          f"{got['polish_cost'][:4].tolist()}... against [fit]'s: bit for "
+          f"bit {bitwise}, largest rel {rel:.3e} (bound {bound:g})",
+          flush=True)
+    check(not diff, f"mesh-fit: the ranks' results differ in {diff}")
+    check(s_same, "mesh-fit: the screened statuses differ from [fit]'s")
+    check(same_set, "mesh-fit: another top_k was polished than [fit]'s")
+    check(bool(np.array_equal(got["polish_status"],
+                              fit_ref["polish_status"])),
+          "mesh-fit: the polished statuses differ from [fit]'s")
+    check(rel <= bound, f"mesh-fit: polished costs rel {rel:.3e}")
+    return check_rank_launches("mesh-fit", recs)
+
+
+# the bound on [cli-mapk22-mesh]'s best cost against [cli-mapk22]'s (the
+# whole batch in one process, whose members round otherwise): the same
+# start is best in both, 1.524e-4 apart on the H100 (PERF.md §6); other
+# polished starts part by up to 7.4e-3, so this bound holds the best alone
+CLI_MESH_BOUND = 1e-3
+
+
+def phase_cli_mesh(name, card, tmpdir, depth, ref):
+    """``multistart --config configs/<name>.yaml`` (its ``mesh:`` section)
+    at ``depth``, launched as ``torchrun --nproc_per_node=2`` launches it:
+    two processes with ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT`` set, in which the CLI joins the group itself. Rank 0
+    prints the record, rank 1 nothing; both ranks hold the same screen and
+    polish bit for bit, and they are those of ``block_reference`` (the
+    same fit in one process by blocks, ``ref["blocks"]``) bit for bit: each
+    start's screened status and cost, the polished starts, their statuses
+    and costs. Against the whole batch in one process (``ref``), whose
+    members round otherwise, the polished sets and costs are printed and
+    the best cost is held to ``CLI_MESH_BOUND``; the best cost at most the
+    cost at truth."""
+    import socket
+
+    path = config_path(name, tmpdir, depth)
+    with open(path) as fh:
+        check("\nmesh:" in fh.read(), f"{path} has no mesh section")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+
+    def env(r):
+        return {"RANK": str(r), "LOCAL_RANK": str(r),
+                "WORLD_SIZE": str(MESH_RANKS),
+                "LOCAL_WORLD_SIZE": str(MESH_RANKS),
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = start_ranks("cli", "env", d, (path,), env)
+        stdouts, recs = join_ranks(f"cli-{name}-mesh", procs, d)
+        wall = time.perf_counter() - t0
+        arrs = [dict(np.load(os.path.join(d, f"rank{r}.npz")))
+                for r in range(MESH_RANKS)]
+    lines = stdouts[0].strip().splitlines()
+    rec = json.loads(lines[0])
+    best, truth = rec["best_cost"], recs[0]["cost_at_truth"]
+    diff = [k for k in arrs[0] if not np.array_equal(arrs[0][k], arrs[1][k])]
+    block_diff = [k for k in arrs[0]
+                  if not np.array_equal(arrs[0][k], ref["blocks"][k])]
+    # against the whole batch, start by start
+    got, want = by_start(arrs[0]), by_start(ref)
+    common = [k for k in want if k in got]
+    statuses = sum(got[k][0] == want[k][0] for k in common)
+    rels = np.array([abs(got[k][1] - want[k][1]) / abs(want[k][1])
+                     for k in common])
+    s_rel = float(np.nanmax(np.abs(arrs[0]["all_screen_cost"]
+                                   - ref["all_screen_cost"])
+                            / np.abs(ref["all_screen_cost"])))
+    s_same = int((arrs[0]["all_screen_status"]
+                  == ref["all_screen_status"]).sum())
+    ref_best = float(ref["cost"].min())
+    best_rel = abs(best - ref_best) / abs(ref_best)
+    best_start = (int(arrs[0]["start"][np.argmin(arrs[0]["cost"])]),
+                  int(ref["start"][np.argmin(ref["cost"])]))
+    for line in lines:
+        print(f"[cli-{name}-mesh] rank 0 printed: {line}", flush=True)
+    for r in recs:
+        print(f"[cli-{name}-mesh] rank {r['rank']}: device {r['device']}, "
+              f"cli.main {r['wall']:.2f} s, best cost {r['best_cost']:.9f}; "
+              f"launches {r['launches']}", flush=True)
+    n = len(arrs[0]["all_screen_cost"])
+    print(f"[cli-{name}-mesh] {card}: {rec['starts']} starts over "
+          f"{MESH_RANKS} ranks (backend {recs[0]['backend']}), top_k "
+          f"{rec['top_k']}, LM iterations {depth or 'of the run file'}: "
+          f"phase wall {wall:.2f} s with the ranks' start-up; the ranks' "
+          f"screen and polish differ in {diff or 'nothing'}; from the same "
+          f"fit by blocks in one process in {block_diff or 'nothing'}. "
+          f"Against the whole batch in one process: screened statuses equal "
+          f"on {s_same} of {n} starts, screened costs largest rel "
+          f"{s_rel:.3e}; {len(common)} of {len(want)} polished starts in "
+          f"both, statuses equal on {statuses} of them, their polished "
+          f"costs largest rel {float(rels.max()):.3e}, median "
+          f"{float(np.median(rels)):.3e}; best cost {best:.9f} at start "
+          f"{best_start[0]} (one process: {ref_best:.9f} at start "
+          f"{best_start[1]}, rel {best_rel:.3e}, bound {CLI_MESH_BOUND:g}), "
+          f"cost at truth {truth:.9f}; rank 1 printed {len(stdouts[1])} "
+          "characters", flush=True)
+    check(stdouts[1] == "", f"cli-{name}-mesh: rank 1 printed "
+          f"{stdouts[1][:200]!r}")
+    check(not diff, f"cli-{name}-mesh: the ranks' results differ in {diff}")
+    check(not block_diff, f"cli-{name}-mesh: the sharded fit differs from "
+          f"the same fit by blocks in {block_diff}")
+    check(best == float(arrs[0]["cost"].min()),
+          f"cli-{name}-mesh: the record's best cost is not the polish's")
+    check(best_rel <= CLI_MESH_BOUND, f"cli-{name}-mesh: best cost rel "
+          f"{best_rel:.3e} from the whole batch's")
+    check(np.isfinite(best) and best <= truth * (1 + 1e-6),
+          f"cli-{name}-mesh: best cost {best} > cost at truth {truth}")
+    return check_rank_launches(f"cli-{name}-mesh", recs)
+
+
+def mesh_fit_rank(mesh, outdir):
+    """One rank of ``[mesh-fit]``: the same starts as every rank (checked
+    by a gathered digest), the driver's run, its launches."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tpusysbio_torch import utils
+    from tpusysbio_torch.fit import latin_hypercube
+    from tpusysbio_torch.linalg import gpu_lu
+
+    tight, screen, theta_true = build_fit_problem(mesh.device)
+    starts = latin_hypercube(torch.Generator().manual_seed(0), FIT_STARTS,
+                             theta_true - 1.0, theta_true + 1.0)
+    digest = torch.tensor(list(hashlib.sha256(
+        starts.cpu().numpy().tobytes()).digest()), dtype=torch.uint8)
+    check(all(torch.equal(d, digest) for d in utils.all_gather(digest, mesh)),
+          "mesh-fit: the ranks built different starts")
+    fit = two_phase(tight, screen, FIT_TOP_K, FIT_SCREEN_ITERS,
+                    FIT_POLISH_ITERS, mesh=mesh)
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    polish, scr, info = fit.run(starts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    ranked = polish.ranked()
+    np.savez(os.path.join(outdir, f"rank{mesh.rank}.npz"),
+             screen_status=scr.status.cpu().numpy(),
+             screen_cost=scr.cost.cpu().numpy(),
+             screen_theta=scr.theta.cpu().numpy(),
+             polish_cost=ranked.cost.cpu().numpy(),
+             polish_status=ranked.status.cpu().numpy(),
+             polish_theta=ranked.theta.cpu().numpy(),
+             polish_theta0=ranked.theta0.cpu().numpy())
+    rec = {"launches": launches, "wall": wall,
+           "screen_seconds": info["screen_seconds"],
+           "polish_seconds": info["polish_seconds"],
+           "backend": dist.get_backend(), "mesh_device": str(mesh.device)}
+    dist.destroy_process_group()
+    return rec
+
+
+def cli_mesh_rank(path, outdir, rank):
+    """One rank of ``[cli-<name>-mesh]``: ``cli.main`` with the group's
+    environment, as ``torchrun`` runs ``python -m tpusysbio_torch.cli``;
+    the ranked polish to ``outdir/rank<rank>.npz``."""
+    import torch
+
+    from tpusysbio_torch import cli, utils
+    from tpusysbio_torch.linalg import gpu_lu
+
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    out = cli.main(["multistart", "--config", path])
+    torch.cuda.synchronize()
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"),
+             **polish_arrays(out))
+    # the backend that the CLI's distributed_initialize chose (it leaves
+    # the group before returning)
+    backend = utils.default_backend(torch.cuda.device_count(),
+                                    int(os.environ["LOCAL_WORLD_SIZE"]))
+    return {"launches": dict(gpu_lu.LAUNCHES),
+            "wall": time.perf_counter() - t0,
+            "best_cost": out["record"]["best_cost"],
+            "cost_at_truth": out["cost_at_truth"], "backend": backend}
+
+
+def mesh_rank_main(kind, rank, world, rendezvous, outdir, *extra):
+    """A rank process of ``[mesh-fit]`` (``kind`` fit: the group joined
+    through the file ``rendezvous``) or ``[cli-<name>-mesh]`` (``kind``
+    cli: the CLI joins it from the environment). It loads the kernels that
+    the parent built (never builds them: two ranks must not race nvcc)
+    and writes its record to ``outdir/rank<rank>.json``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    sys.path.insert(0, ROOT)
+    import tpusysbio_torch  # noqa: F401  (sets true-f32 matmuls)
+    from tpusysbio_torch import utils
+    from tpusysbio_torch.linalg import _build, gpu_lu
+
+    gpu_lu._LAYOUT = "minor"
+    rank, world = int(rank), int(world)
+    _build.load()
+    check(_build.build_info.get("cached"),
+          f"{kind} rank {rank}: the kernels were not built before the "
+          "ranks started")
+    if kind == "fit":
+        utils.distributed_initialize(num_processes=world, process_id=rank,
+                                     init_method=f"file://{rendezvous}",
+                                     timeout_s=MESH_GROUP_TIMEOUT)
+        rec = mesh_fit_rank(utils.make_mesh(), outdir)
+    else:
+        rec = cli_mesh_rank(extra[0], outdir, rank)
+    rec.update(rank=rank, device=torch.cuda.get_device_name(
+        torch.cuda.current_device()))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
 
 
 CLI_GROUP_FLAG = "--cli-group"
@@ -3940,10 +4374,12 @@ def parent_paths(card, laps):
     TRF path, the other steppers and the surfaces."""
     l_main, run = phase_main_path()
     laps("main")
-    (l_fit, l_screen, l_polish), problem, fit_top = phase_fit()
+    (l_fit, l_screen, l_polish), problem, fit_top, fit_ref = phase_fit()
     laps("fit")
     l_major = phase_fit_major(problem)
     laps("fit-major")
+    l_mesh = phase_mesh_fit(card, fit_ref)
+    laps("mesh-fit")
     l_egfr_sens, egfr = phase_egfr_sens(card)
     laps("egfr-sens")
     l_egfr_fit = phase_egfr_fit(card, egfr)
@@ -3952,7 +4388,8 @@ def parent_paths(card, laps):
     laps("egfr-major")
     phase_golden_small(card)
     laps("golden-small")
-    l_small = {"fit-trf": phase_fit_trf(card, problem, fit_top,
+    l_small = {"mesh-fit": l_mesh,
+               "fit-trf": phase_fit_trf(card, problem, fit_top,
                                         FIT_TRF_ITERS)}
     laps("fit-trf")
     l_small.update(phase_other_steppers(card, problem))
@@ -4101,5 +4538,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == [CLI_GROUP_FLAG]:
         cli_group_main(sys.argv[2])
+    elif sys.argv[1:2] == [MESH_RANK_FLAG]:
+        mesh_rank_main(*sys.argv[2:])
     else:
         main()

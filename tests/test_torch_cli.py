@@ -21,7 +21,7 @@ from tpusysbio.config import SolverConfig as JSolverConfig
 from tpusysbio.fit import multistart as jms
 from tpusysbio.fit import profile as jprofile
 from tpusysbio.project import Project as JProject
-from tpusysbio_torch import FitConfig, SolverConfig, cli, config
+from tpusysbio_torch import FitConfig, SolverConfig, cli, config, utils
 from tpusysbio_torch.fit import (confidence_intervals, multistart_two_phase,
                                  profile_likelihood)
 from tpusysbio_torch.project import Project
@@ -227,9 +227,12 @@ def test_profile_likelihood_matches_reference():
     np.testing.assert_array_equal(np.isfinite(ci), np.isfinite(ci_ref))
     fin = np.isfinite(ci_ref)
     np.testing.assert_allclose(ci[fin], ci_ref[fin], rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= is ported since (tests/test_torch_mesh.py): a mesh size that
+    # does not divide the 2·P chains raises before any chain runs
+    with pytest.raises(ValueError, match="does not divide"):
         profile_likelihood(proj.residuals, proj.residuals_and_jacobian,
-                           torch.as_tensor(theta_true), mesh=object())
+                           torch.as_tensor(theta_true), mesh=utils.Mesh(
+                               ("starts",), 3, 0, torch.device("cpu")))
 
 
 # --------------------------------------------------------------------------
@@ -326,11 +329,12 @@ def test_cli_config_rejects_unknown_run_key_and_wide_mesh(tmp_path):
     path.write_text(json.dumps({"model": "mm3", "run": {"startz": 4}}))
     with pytest.raises(SystemExit, match="startz"):
         cli.main(["--cpu", "multistart", "--config", str(path)])
-    assert cli._mesh_devices(config.MeshConfig(axis_sizes=(4,)),
-                             torch.device("cpu")) == 1
+    # without a process group a config mesh resolves to one rank
+    assert cli._config_mesh(config.MeshConfig(axis_sizes=(4,)),
+                            torch.device("cpu")) == (None, False)
     with pytest.raises(ValueError, match="1-D"):
-        cli._mesh_devices(config.MeshConfig(axis_names=("a", "b")),
-                          torch.device("cpu"))
+        cli._config_mesh(config.MeshConfig(axis_names=("a", "b")),
+                         torch.device("cpu"))
 
 
 def test_cli_profile_reports_cis(tmp_path, capsys):

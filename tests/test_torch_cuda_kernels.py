@@ -400,3 +400,46 @@ def test_radau_embedding_n44(cuda_device, monkeypatch, B):
     assert float((got - plain).abs().max() / plain.abs().max()) <= 1e-12
     assert float(((got - sol).abs() / sol.abs().clamp_min(1e-30)).max()) \
         < 1e-9
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_equal_one(cuda_device, tmp_path):
+    """``multistart_fit(mesh=)`` over two gloo ranks sharing the card (the
+    rank processes of tests/test_torch_mesh.py, case ``cuda``: 16
+    Rosenbrock starts, 8 a rank): both ranks return the one-process run
+    on the card (tests/test_multihost.py's bounds: cost 1e-12, θ 1e-10,
+    equal statuses)."""
+    import os
+    import subprocess
+    import sys
+
+    from tpusysbio_torch import FitConfig
+    from tpusysbio_torch.fit import multistart_fit
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import test_torch_mesh as mesh_test
+
+    out = str(tmp_path / "out")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "test_torch_mesh.py"), str(r),
+         "2", str(tmp_path / "init"), out, "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    one = multistart_fit(mesh_test.ros_r, mesh_test.ros_rj, torch.as_tensor(
+        mesh_test.ROS_STARTS, device=cuda_device), FitConfig(max_iter=60))
+    for r in range(2):
+        got = np.load(f"{out}.{r}.npz")
+        np.testing.assert_allclose(got["a_cost"], one.cost.cpu().numpy(),
+                                   rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(got["a_theta"], one.theta.cpu().numpy(),
+                                   rtol=1e-10, atol=1e-10)
+        np.testing.assert_array_equal(got["a_status"],
+                                      one.status.cpu().numpy())

@@ -18,7 +18,7 @@ from bench.fits_bench import build_problem
 from tpusysbio.config import FitConfig as JFitConfig
 from tpusysbio.config import SolverConfig as JSolverConfig
 from tpusysbio.fit import multistart as jms
-from tpusysbio_torch import FitConfig, SolverConfig, convert
+from tpusysbio_torch import FitConfig, SolverConfig, convert, utils
 from tpusysbio_torch.fit import (MultistartResult, TwoPhaseDriver,
                                  latin_hypercube, make_multistart_runner,
                                  multistart_fit, multistart_two_phase,
@@ -160,24 +160,47 @@ def test_run_chunked_argument_checks():
     np.testing.assert_array_equal(fit.theta.numpy(), res.theta.numpy())
 
 
-# mesh= is the one option not ported (ROADMAP item 14); it raises alone
-# and beside the options that are ported
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(mesh=object(), compact=True),
-                                dict(mesh=object(), bounds=(0.0, 1.0))])
+# mesh= is ported since (tests/test_torch_mesh.py runs it over two
+# ranks). Alone and beside the other options: a one-rank mesh computes
+# what no mesh computes, and a start count that the mesh size does not
+# divide raises before any rank fits.
+def _two_ranks():
+    return utils.Mesh(("starts",), 2, 0, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(compact=True, iter_chunk=3),
+                                dict(bounds=(0.0, 3.0))])
 def test_unported_runner_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported.*item 14"):
-        make_multistart_runner(_r, _rj, FitConfig(), **kw)
+    th = _starts(6)
+    cfg = FitConfig(max_iter=20)
+    one = make_multistart_runner(_r, _rj, cfg, mesh=utils.make_mesh(
+        device="cpu"), **kw)(th)
+    plain = make_multistart_runner(_r, _rj, cfg, **kw)(th)
+    for f in ("theta", "cost", "status", "n_iter", "cov"):
+        assert torch.equal(getattr(one, f), getattr(plain, f)), f
+    with pytest.raises(ValueError, match="does not divide"):
+        make_multistart_runner(_r, _rj, cfg, mesh=_two_ranks(), **kw)(
+            th[:5])
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()),
-    dict(mesh=object(), presort_fn=lambda th: th[:, 0]),
-    dict(mesh=object(), polish_bounds=(0.0, 1.0))])
+    dict(),
+    dict(presort_fn=lambda th: th[:, 0], chunk_size=3),
+    dict(polish_bounds=(0.0, 3.0))])
 def test_unported_two_phase_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported.*item 14"):
-        TwoPhaseDriver((_r, _rj), (_r, _rj), FitConfig(), FitConfig(), 2,
-                       **kw)
+    th = _starts(8, seed=2)
+    fns = (_r, _rj)
+    one = TwoPhaseDriver(fns, fns, FitConfig(max_iter=4), FitConfig(), 2,
+                         mesh=utils.make_mesh(device="cpu"), **kw).run(th)
+    plain = TwoPhaseDriver(fns, fns, FitConfig(max_iter=4), FitConfig(), 2,
+                           **kw).run(th)
+    for got, ref in zip(one[:2], plain[:2]):
+        for f in ("theta", "cost", "status"):
+            assert torch.equal(torch.as_tensor(getattr(got, f)),
+                               torch.as_tensor(getattr(ref, f))), f
+    with pytest.raises(ValueError, match="does not divide"):
+        TwoPhaseDriver(fns, fns, FitConfig(), FitConfig(), 2,
+                       mesh=_two_ranks(), **kw).run(th[:5])
 
 
 def test_two_phase_on_the_analytic_objective(tmp_path):

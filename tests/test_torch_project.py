@@ -23,7 +23,7 @@ from tpusysbio import data as jdata
 from tpusysbio import project as jproject
 from tpusysbio.config import SolverConfig as JSolverConfig
 from tpusysbio.model import library as jlibrary
-from tpusysbio_torch import SolverConfig, convert
+from tpusysbio_torch import SolverConfig, convert, utils
 from tpusysbio_torch.data import Experiment, ExperimentBatch, Measurement
 from tpusysbio_torch.model import library
 from tpusysbio_torch.project import (ParameterMap, Priors, Project,
@@ -307,18 +307,19 @@ def _unported_cases():
                                               y0_overrides={"KKK": 1.0})]),
         "priors": dict(exps=[Experiment("x", (m,))], priors={}),
         "experiment_mesh": dict(exps=[Experiment("x", (m,))],
-                                experiment_mesh=object()),
+                                experiment_mesh=utils.make_mesh(
+                                    axis_name="experiments", device="cpu")),
     }
 
 
 @pytest.mark.parametrize("feature", sorted(_unported_cases()))
 def test_unported_features_raise(feature):
-    """The batch is constructed as the reference constructs it. Of these
-    features only ``experiment_mesh`` is still refused; the ``Project``
-    takes the others (timed inputs, state assignments, pre-equilibration,
-    initial-value overrides, steady-state rows and priors), and
-    tests/test_torch_events.py and test_torch_priors.py hold them against
-    the reference."""
+    """The batch is constructed as the reference constructs it. The
+    ``Project`` takes every one of these features (timed inputs, state
+    assignments, pre-equilibration, initial-value overrides, steady-state
+    rows, priors and, since ROADMAP item 14, an experiment mesh), and
+    tests/test_torch_events.py, test_torch_priors.py and
+    test_torch_mesh.py hold them against the reference."""
     case = _unported_cases()[feature]
     model = library.mapk_huang_ferrell(device="cpu")
     batch = ExperimentBatch.from_experiments(
@@ -332,10 +333,6 @@ def test_unported_features_raise(feature):
     if "priors" in case:
         case["priors"] = Priors.create(pmap, batch, params={
             model.param_names[0]: (1.0, 0.5)}, device="cpu")
-    if feature == "experiment_mesh":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Project(model=model, pmap=pmap, batch=batch, **case)
-        return
     proj = Project(model=model, pmap=pmap, batch=batch, **case)
     extra = proj.priors.n_rows if proj.priors is not None else 0
     assert proj.n_residuals == batch.n_residuals + extra

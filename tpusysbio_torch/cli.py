@@ -21,9 +21,12 @@ Differences from the reference:
 - ``--profile DIR`` writes a ``torch.profiler`` trace, ``DIR/trace.json``;
 - ``fit --max-iter N`` caps the example's LM iterations per start (by
   default the example's own, the reference's fixed number);
-- a config's ``mesh:`` section runs unsharded when it resolves to one
-  device (what a one-device mesh computes) and says so on stderr; more
-  than one device raises;
+- a config's ``mesh:`` section spans the ranks of a ``torchrun`` launch
+  (``torchrun --nproc_per_node=K -m tpusysbio_torch.cli multistart
+  --config ...``: one process per rank, ``utils.make_mesh``); rank 0
+  alone prints and writes ``--out`` and ``--plot`` files. Started as one
+  process it runs unsharded (what a one-device mesh computes) and says so
+  on stderr;
 - ``sample``'s chain takes its draws from a ``torch.Generator`` seeded by
   ``--seed`` (its walkers start from the reference's numpy ball, so they
   equal the JAX CLI's; the chains differ);
@@ -223,16 +226,27 @@ def _synth_problem(args, device):
     return model, batch, pmap, free, theta_true
 
 
-def _mesh_devices(mesh, device) -> int:
-    """The number of devices a ``MeshConfig`` resolves to, as the
-    reference's ``make_mesh`` resolves it (all local devices by default)."""
-    if len(mesh.axis_names) != 1:
+def _config_mesh(config, device):
+    """The mesh of a config's ``mesh:`` section: over the process group of
+    a ``torchrun`` launch (``WORLD_SIZE`` > 1; this process joins it here
+    when no group exists yet), or None when it resolves to one rank.
+    Returns ``(mesh, joined)``."""
+    import torch.distributed as dist
+
+    from tpusysbio_torch import utils
+
+    if len(config.axis_names) != 1:
         raise ValueError("the ensemble mesh is 1-D; got axes "
-                         f"{mesh.axis_names!r}")
-    local = torch.cuda.device_count() if device.type == "cuda" else 1
-    if mesh.axis_sizes is not None:
-        return min(int(mesh.axis_sizes[0]), local)
-    return local
+                         f"{config.axis_names!r}")
+    joined = (not dist.is_initialized()
+              and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if joined:
+        utils.distributed_initialize(
+            backend="gloo" if device.type == "cpu" else None)
+    if not dist.is_initialized():
+        return None, False
+    mesh = utils.make_mesh(config=config, device=device)
+    return (mesh if mesh.size > 1 else None), joined
 
 
 def cmd_multistart(args):
@@ -259,6 +273,19 @@ def cmd_multistart(args):
 
         viz._mpl()
     dev = _device(args)
+    # join the group first: it pins this rank's card, and the problem is
+    # built on the mesh's device
+    mesh, joined = None, False
+    if runspec is not None and runspec.mesh is not None:
+        mesh, joined = _config_mesh(runspec.mesh, dev)
+        if mesh is None:
+            print("mesh: the config's mesh resolves to one device; running "
+                  "unsharded, which is what a one-device mesh computes",
+                  file=sys.stderr)
+        else:
+            dev = mesh.device
+    # under a mesh every rank holds the whole result; rank 0 reports it
+    quiet = mesh is not None and mesh.rank != 0
 
     model, batch, pmap, free, theta_true = _synth_problem(args, dev)
 
@@ -286,13 +313,6 @@ def cmd_multistart(args):
         screen_fit_cfg = FitConfig(max_iter=args.screen_iters,
                                    eval_mode="lockstep", ftol=1e-4,
                                    xtol=1e-4)
-    if runspec is not None and runspec.mesh is not None:
-        n_dev = _mesh_devices(runspec.mesh, dev)
-        if n_dev > 1:
-            _unported(f"a mesh over {n_dev} devices", "14")
-        print("mesh: the config's mesh resolves to one device; running "
-              "unsharded, which is what a one-device mesh computes",
-              file=sys.stderr)
     proj_tight = Project(model=model, pmap=pmap, batch=batch,
                          config=tight_cfg)
     proj_screen = dataclasses.replace(proj_tight, config=screen_cfg)
@@ -302,14 +322,18 @@ def cmd_multistart(args):
                              theta_true + args.spread)
     top_k = min(args.top_k, args.starts)
     t0 = time.perf_counter()
-    with _maybe_profile(args.profile, dev):
+    with _maybe_profile(None if quiet else args.profile, dev):
         polish, screen = multistart_two_phase(
             (proj_screen.residuals, proj_screen.residuals_and_jacobian),
             (proj_tight.residuals, proj_tight.residuals_and_jacobian),
             starts, screen_fit_cfg, polish_fit_cfg,
-            top_k=top_k, iter_chunk=args.iter_chunk)
+            top_k=top_k, mesh=mesh, iter_chunk=args.iter_chunk)
         _sync(dev)
     wall = time.perf_counter() - t0
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
     ranked = polish.ranked()
     cost_truth = float(proj_tight.cost(theta_true))
@@ -323,9 +347,16 @@ def cmd_multistart(args):
         "cost_at_truth": round(cost_truth, 6),
         "top_costs": cost[:min(5, top_k)].round(4).tolist(),
     }
-    print(json.dumps(rec))
     theta = ranked.theta.cpu().numpy()
     sigma = ranked.param_sigma.cpu().numpy()
+    out = {"record": rec, "wall": wall, "cost_at_truth": cost_truth,
+           "polish": polish, "screen": screen, "starts": starts,
+           "project": proj_tight, "screen_project": proj_screen,
+           "theta_true": theta_true, "polish_config": polish_fit_cfg,
+           "screen_config": screen_fit_cfg}
+    if quiet:
+        return out
+    print(json.dumps(rec))
     for name, th, sg in zip(free, theta[0], sigma[0]):
         print(f"  {name:>16s}: {np.exp(th):.6g}  "
               f"(log-space 1σ {sg:.3g})")
@@ -343,10 +374,7 @@ def cmd_multistart(args):
             f"{args.plot}_fit.png", dpi=110)
         print(f"plots saved to {args.plot}_waterfall.png / _fit.png",
               file=sys.stderr)
-    return {"record": rec, "wall": wall, "cost_at_truth": cost_truth,
-            "polish": polish, "screen": screen, "starts": starts,
-            "project": proj_tight, "screen_project": proj_screen,
-            "theta_true": theta_true, "polish_config": polish_fit_cfg}
+    return out
 
 
 def cmd_profile(args):

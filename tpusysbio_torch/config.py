@@ -106,12 +106,12 @@ class FitConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Device layout for multi-start parallelism: the one axis ``starts``
-    splits the members across cards. ``axis_sizes=None`` means every local
-    device. The port runs on one card; a layout of more than one device
-    raises where it is used (``cli.py``)."""
+    splits the members across the ranks of a process group, one process
+    and one device a rank (``utils.make_mesh(config=...)``).
+    ``axis_sizes=None`` means every rank of the group."""
 
     axis_names: Tuple[str, ...] = ("starts",)
-    axis_sizes: Optional[Tuple[int, ...]] = None  # None -> all local devices
+    axis_sizes: Optional[Tuple[int, ...]] = None  # None -> every rank
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,8 +17,14 @@ chunk; a resumed run skips completed chunks.
 ``bounds=`` (``multistart_trf``, ``polish_bounds=``) switches a phase from
 LM to the bounded Coleman–Li TRF (``optim/trf.py``) with its
 ``subproblem``/``loss``/``f_scale``; both states are resumable, so
-``iter_chunk``, ``compact`` and checkpointing work over either. Not ported
-yet (``NotImplementedError``, ROADMAP Queue 1 item 14): ``mesh=``.
+``iter_chunk``, ``compact`` and checkpointing work over either.
+
+``mesh=`` (``utils.make_mesh``) splits the starts over the ranks of a
+process group: every rank passes the same full start set, fits its
+contiguous block (N must divide by the mesh size) and all-gathers the
+results, so every rank returns the whole result. Members are
+independent, so each rank compacts its own block, and the checkpointed
+path writes from rank 0 after the gather.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import torch
 from tpusysbio_torch.config import FitConfig
 from tpusysbio_torch.optim.lm import FitResult, lm_finish, lm_init, lm_run
 from tpusysbio_torch.optim.trf import trf_finish, trf_init, trf_run
+from tpusysbio_torch.utils import (all_gather, barrier, gather_multihost,
+                                   shard_starts)
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -44,12 +52,6 @@ def _wait(x) -> None:
     """Block until the device work behind tensor ``x`` is done."""
     if isinstance(x, torch.Tensor) and x.device.type == "cuda":
         torch.cuda.synchronize(x.device)
-
-
-def _unported_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multistart: mesh= is not ported yet (ROADMAP Queue 1 item 14)")
 
 
 class MultistartResult(NamedTuple):
@@ -236,15 +238,19 @@ def make_multistart_runner(
     ``loss`` and ``f_scale``. ``compact=True`` acts under ``iter_chunk``
     only: between chunks it flushes the done members and repacks the live
     ones into the next power-of-two batch (pays off for long-tailed
-    convergence).
+    convergence). With ``mesh``, each rank fits its block of the starts
+    and the results are gathered onto every rank; ``bounds`` are
+    replicated.
     """
-    _unported_mesh(mesh)
     run = _fit_batch_fn(residual_fn, residual_and_jac_fn, config,
                         iter_chunk, compact, with_cov, bounds=bounds,
                         subproblem=subproblem, loss=loss, f_scale=f_scale)
 
     def runner(theta0s):
-        fr = run(theta0s)
+        if mesh is None:
+            fr = run(theta0s)
+        else:
+            fr = gather_multihost(run(shard_starts(theta0s, mesh)), mesh)
         return MultistartResult(theta=fr.theta, cost=fr.cost,
                                 grad_norm=fr.grad_norm, status=fr.status,
                                 n_iter=fr.n_iter, theta0=theta0s,
@@ -254,6 +260,7 @@ def make_multistart_runner(
     # advertised so run_chunked can reject a channels='all'/cov-less
     # mismatch up front instead of after the first (expensive) chunk
     runner.with_cov = with_cov
+    runner.mesh = mesh
     return runner
 
 
@@ -367,6 +374,11 @@ def run_chunked(
     the right mode for screening phases. ``as_numpy=True`` keeps the
     accumulated results on the host (they arrive there anyway for the
     checkpoint); otherwise they return to the device of ``theta0s``.
+
+    A runner built with ``mesh=`` shards every chunk (``chunk_size`` must
+    divide by the mesh size); rank 0 writes the checkpoint after each
+    chunk's gather, the others wait for it, and every rank resumes from
+    the same file, which must lie where every rank can read it.
     """
     if channels not in ("all", "rank"):
         raise ValueError(f"unknown channels {channels!r}")
@@ -386,6 +398,14 @@ def run_chunked(
         if done:
             parts = [acc]
         done = min(done, n_chunks)
+    mesh = getattr(runner, "mesh", None)
+    if checkpoint_path and resume and mesh is not None:
+        seen = [int(d) for d in all_gather(torch.tensor([done]), mesh)]
+        if len(set(seen)) > 1:
+            raise ValueError(
+                f"the ranks read different checkpoints (chunks done by "
+                f"rank: {seen}): {checkpoint_path} must be one file that "
+                "every rank reads")
 
     for c in range(done, n_chunks):
         fr = runner(theta0s[c * chunk_size:(c + 1) * chunk_size])
@@ -395,8 +415,10 @@ def run_chunked(
         parts.append({k: _to_numpy(getattr(fr, k)) for k in keys})
         if checkpoint_path:
             acc = {k: np.concatenate([p[k] for p in parts]) for k in keys}
-            _atomic_savez(checkpoint_path, chunks_done=c + 1,
-                          run_digest=digest, **acc)
+            if mesh is None or mesh.rank == 0:
+                _atomic_savez(checkpoint_path, chunks_done=c + 1,
+                              run_digest=digest, **acc)
+            barrier(mesh)
             parts[:] = [acc]
 
     acc = {k: np.concatenate([p[k] for p in parts]) for k in keys}
@@ -433,7 +455,9 @@ def multistart_fit(
     each completed chunk is persisted; re-running resumes after the last
     one. With ``iter_chunk``, each ``lm_run`` call advances the
     (resumable) LM state by at most that many iterations; ``compact=True``
-    then also repacks the live members between chunks.
+    then also repacks the live members between chunks. With ``mesh`` (1-D,
+    axis ``'starts'``) the starts are split over its ranks: N must divide
+    by the mesh size.
     """
     run = make_multistart_runner(residual_fn, residual_and_jac_fn, config,
                                  mesh=mesh, iter_chunk=iter_chunk,
@@ -532,6 +556,10 @@ def multistart_two_phase(
         chunks, so each chunk's lockstep groups members of similar cost;
         results come back in the caller's order. Pays only when the
         per-start step distribution is broad beside the probe's cost.
+      mesh: the screen is split over the ranks and gathered; every rank
+        ranks the same gathered screen, and the polish is split too when
+        the mesh size divides its batch (``polish_subbatch`` or
+        ``top_k``), else it runs whole on every rank.
 
     Returns ``(polish_result, screen_result)``; with ``return_info=True``
     additionally a dict with phase wall times and resume counts.
@@ -570,7 +598,6 @@ class TwoPhaseDriver:
                  polish_loss: str = "linear",
                  polish_f_scale: float = 1.0,
                  presort_fn: Optional[Callable] = None):
-        _unported_mesh(mesh)
         self.presort_fn = presort_fn
         self.screen_config = screen_config
         self.polish_config = polish_config
@@ -589,11 +616,16 @@ class TwoPhaseDriver:
                                 if polish_subbatch
                                 and polish_subbatch < top_k else None)
         self.screen_run = make_multistart_runner(
-            screen_fns[0], screen_fns[1], screen_config,
+            screen_fns[0], screen_fns[1], screen_config, mesh=mesh,
             iter_chunk=iter_chunk, with_cov=(screen_channels == "all"))
         pic = iter_chunk if polish_iter_chunk is None else polish_iter_chunk
+        # a polish batch that the mesh size does not divide polishes
+        # unsharded on every rank (a small fraction of the work)
+        pb = self.polish_subbatch or top_k
+        polish_mesh = (mesh if mesh is not None and pb % mesh.size == 0
+                       else None)
         self.polish_run = make_multistart_runner(
-            polish_fns[0], polish_fns[1], polish_config,
+            polish_fns[0], polish_fns[1], polish_config, mesh=polish_mesh,
             iter_chunk=(pic or None), bounds=polish_bounds,
             subproblem=polish_subproblem, loss=polish_loss,
             f_scale=polish_f_scale)

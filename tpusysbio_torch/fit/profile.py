@@ -13,8 +13,8 @@ loop over the grid points takes the place of the reference's ``lax.scan``.
 Pinning is expressed inside LM: the residual is evaluated at
 ``pin(θ) = θ·(1−e_i) + v·e_i`` and the pinned Jacobian column is masked to
 zero, so the damped normal equations give δᵢ = 0 and one batch serves all
-parameters. ``mesh=`` (the chains across cards) raises
-``NotImplementedError``.
+parameters. ``mesh=`` (``utils.make_mesh``) splits the 2·P chains over its
+ranks; their curves are gathered onto every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from tpusysbio_torch.config import FitConfig
 from tpusysbio_torch.optim.lm import lm_init, lm_run
+from tpusysbio_torch.utils import gather_multihost
 
 
 class ProfileResult(NamedTuple):
@@ -61,14 +62,12 @@ def profile_likelihood(
       idx: parameter indices to profile (default: all G).
       n_points: grid points per direction (2·n_points+1 per row).
       span: half-width of the window in θ (log) units, scalar or (P,).
+      mesh: split the 2·P chains over the mesh's ranks (its size must
+        divide 2·P); every rank returns the whole result.
 
     Returns a :class:`ProfileResult`; :func:`confidence_intervals` turns it
     into likelihood-ratio intervals.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "profile_likelihood: mesh= is not ported yet (ROADMAP Queue 1 "
-            "item 14)")
     theta_opt = torch.as_tensor(theta_opt)
     dtype, dev = theta_opt.dtype, theta_opt.device
     G = theta_opt.shape[0]
@@ -82,6 +81,10 @@ def profile_likelihood(
     # column
     ohs = torch.cat([onehots, onehots])                       # (2P, G)
     step = torch.cat([delta, -delta])                         # (2P,)
+    if mesh is not None:
+        # this rank's block of chains
+        mine = mesh.block(2 * n_p)
+        ohs, step = ohs[mine], step[mine]
     center = ohs @ theta_opt                                  # (2P,)
     keep = 1.0 - ohs
 
@@ -89,7 +92,7 @@ def profile_likelihood(
         return th * keep + v[:, None] * ohs
 
     values, costs, status, thetas = [], [], [], []
-    theta = theta_opt.expand(2 * n_p, G).clone()
+    theta = theta_opt.expand(ohs.shape[0], G).clone()
     for k in range(1, n_points + 1):
         v = center + step * k
 
@@ -111,6 +114,9 @@ def profile_likelihood(
         thetas.append(theta)
     values, costs, status, thetas = (torch.stack(x, dim=1) for x in
                                      (values, costs, status, thetas))
+    if mesh is not None:
+        values, costs, status, thetas = gather_multihost(
+            (values, costs, status, thetas), mesh)
 
     r0 = residual_fn(theta_opt[None])[0]
     cost_opt = 0.5 * torch.sum(r0 * r0)

@@ -33,8 +33,13 @@ every experiment under ``vmap`` and discards the others' results.
 A model without the closed-form ``rhs_sens``/``rhs_sens_dir`` that the
 chosen ``sens_mode`` needs takes its columns from ``sens/forward.py``.
 
-Not ported yet (``NotImplementedError`` at construction):
-``experiment_mesh``.
+``experiment_mesh`` (``utils.make_mesh``) splits the experiments over the
+ranks of a process group: each rank integrates the N × E_r members of its
+contiguous block of experiments, the predictions and their θ-columns are
+all-gathered in experiment order, and the scale factors, priors and
+residual assembly then run whole on every rank, so every rank returns the
+full ``r`` and ``J``. E need not divide by the mesh size: blocks hold
+⌈E / size⌉ experiments, the last ones fewer, and the gather drops the pads.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from tpusysbio_torch.sens import make_sens_rhs, make_sens_rhs_dir
 from tpusysbio_torch.solvers.common import (STATUS_DONE, STATUS_SS_FAIL,
                                             IntegrateResult)
 from tpusysbio_torch.solvers.steady_state import steady_state
+from tpusysbio_torch.utils import all_gather, check_device
 
 
 class ProjectEval(NamedTuple):
@@ -104,9 +110,6 @@ class Project:
 
     def __post_init__(self):
         b = self.batch
-        if self.experiment_mesh is not None:
-            raise NotImplementedError(
-                "Project: not ported yet: experiment_mesh (ROADMAP item 14)")
         if self.sens_mode not in ("auto", "theta", "params"):
             raise ValueError(f"unknown sens_mode {self.sens_mode!r}")
         if self.pmap.map_idx.device != b.t_eval.device:
@@ -123,6 +126,24 @@ class Project:
             else np.zeros(0, np.int64), device=dev))
         set_(self, "_ss_exps", torch.as_tensor(
             np.flatnonzero(b.m_is_ss.any(1).cpu().numpy()), device=dev))
+        mesh = self.experiment_mesh
+        set_(self, "_block", None)
+        if mesh is not None and mesh.size > 1:
+            check_device(b.t_eval, mesh, "the batch's tensors")
+            # this rank's experiments as a Project of their own; a rank
+            # whose block is empty integrates experiment 0 as a pad
+            E = b.n_experiments
+            per = -(-E // mesh.size)
+            counts = [min(per, max(E - r * per, 0)) for r in range(mesh.size)]
+            lo = mesh.rank * per
+            exps = torch.arange(lo, lo + counts[mesh.rank], device=dev) \
+                if counts[mesh.rank] else torch.zeros(1, dtype=torch.long,
+                                                      device=dev)
+            sub = dataclasses.replace(
+                self, pmap=_take_experiments(self.pmap, exps),
+                batch=_take_experiments(b, exps), experiment_mesh=None,
+                priors=None)
+            set_(self, "_block", (sub, counts, per))
 
     @property
     def n_residuals(self) -> int:
@@ -362,7 +383,28 @@ class Project:
             y_final=torch.cat([y_c[..., None]]
                               + ([s_c] if with_sens else []), dim=-1))
 
+    def _gathered_on_mesh(self, theta, with_jac: bool):
+        """``_gathered`` of this rank's block of experiments, all-gathered
+        along the experiment axis in experiment order."""
+        sub, counts, per = self._block
+        mesh = self.experiment_mesh
+        mine = counts[mesh.rank]
+
+        def gather(x):
+            # pad this block to ``per`` experiments (dim 1), gather, drop
+            # every block's pads
+            x = x[:, :mine].transpose(0, 1)
+            x = torch.cat([x, x.new_zeros((per - mine,) + x.shape[1:])])
+            parts = all_gather(x, mesh)
+            return torch.cat([p[:c] for p, c in zip(parts, counts)]) \
+                .transpose(0, 1)
+
+        return tuple(None if x is None else gather(x)
+                     for x in sub._gathered(theta, with_jac))
+
     def _gathered(self, theta, with_jac: bool):
+        if self._block is not None:
+            return self._gathered_on_mesh(theta, with_jac)
         b = self.batch
         N = theta.shape[0]
         E, M = b.n_experiments, b.n_meas
@@ -498,3 +540,16 @@ class Project:
 
     def cost(self, theta) -> torch.Tensor:
         return self.evaluate(theta, with_jac=False).cost
+
+
+def _take_experiments(obj, exps: torch.Tensor):
+    """An ``ExperimentBatch`` or ``ParameterMap`` restricted to the
+    experiments ``exps``: every tensor field leads with E. The batch's
+    ``has_steady`` follows its own rows (the segment, pre-equilibration
+    and override paths act on masks, which hold for any subset)."""
+    fields = {f.name: getattr(obj, f.name)[exps]
+              for f in dataclasses.fields(obj)
+              if isinstance(getattr(obj, f.name), torch.Tensor)}
+    if isinstance(obj, ExperimentBatch):
+        fields["has_steady"] = bool(fields["m_is_ss"].any())
+    return dataclasses.replace(obj, **fields)

@@ -376,6 +376,13 @@ def bdf_solve(
         n_equal_steps = st["n_equal_steps"]
         last_accepted = st["last_accepted"]
         running = st["status"] == STATUS_RUNNING
+        if config.debug_checks:
+            bad = torch.nonzero(~(h_abs > 0) & running)
+            if bad.numel():
+                i = int(bad[0, 0])
+                raise FloatingPointError(
+                    f"non-positive step size h={float(h_abs[i])} at "
+                    f"t={float(t[i])}")
 
         # SciPy clamps h into [min_step, max_step] at a fresh step; inside
         # a retry sequence h < min_step is fatal.
