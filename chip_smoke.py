@@ -39,7 +39,12 @@ first failed check:
    spread) through ``OdeModel.simulate_sensitivities``; all members must
    finish, K1's and K2's launch counters must rise, 4 members re-run on
    the CPU must agree, and the golden MAPK-22 sensitivity fixture must hold
-   on the card;
+   on the card; then ``[bench]``, the same contract through the CLI's
+   ``bench`` (``cli.main(["bench"])``, ``tpusysbio_torch/bench.py``) at its
+   defaults (batch 256, 3 repeats): its JSON line printed after the card's
+   name and power limit, the reference's keys, 256 members done,
+   ``backend`` "cuda", K1 and K2 launched and ``mean_nsteps`` equal to
+   [main]'s;
 7. the fit path: the MAPK-22 two-phase multi-start fit (12 free rate
    constants, 3 observables x 12 times; 256 Latin-hypercube starts
    screened by LM on the f32 stepper, the best 16 polished at rtol=1e-6)
@@ -48,7 +53,12 @@ first failed check:
    finite costs, the best polished cost must not exceed the cost at the
    true parameters, and a small run of the same two-phase fit on the CPU (the 4 best starts; 2 screening and 3
    polishing iterations, the polish from the card's screened points) must
-   agree with the card;
+   agree with the card; then ``[chunked-overlap]``, the same screening
+   runner over the same 256 starts in 4 chunks of 64
+   (``CHUNKED_SCREEN_ITERS`` LM iterations) through ``run_chunked`` with a
+   checkpoint, ``overlap=True`` and ``overlap=False``: every channel and
+   every checkpoint array equal bit for bit, both walls printed, and a
+   resumed ``overlap=True`` run skipping all 4 chunks with the same costs;
 8. the fit path's screening phase under ``TPUSYSBIO_GJ_LAYOUT=major``
    (64 starts, 2 iterations): K3 must be launched in K1's place and the
    costs must agree with the ``minor`` layout's;
@@ -182,11 +192,18 @@ first failed check:
    batch the best cost to ``CLI_MESH_BOUND`` (1e-3) and at most the cost
    at truth; K1 and K2 launched in each rank.
 
+20. in the CLI group after ``[sample-mm3]``: ``[mcmc-log-prob-v]``,
+   ``ensemble_sample`` over ``[sample-mm3]``'s MM-3 log posterior at 16
+   walkers of its ball and 2 sweeps, once through ``log_prob_v=`` scoring
+   each batch in two blocks and once through the default evaluator with
+   the same two-block split: the override sees all 1 + 2·2 evaluations and
+   the two chains, log-probs and acceptances are equal bit for bit.
+
 ``phase_egfr_10k(card, n_starts=10000)``, not called by ``main()``, is
 config 5 at its literal scale (``bench/experiments/egfr_10k.py``) through
 ``TwoPhaseDriver``, in a call of its own.
 
-Phases 13 and 14 and ``[sample-mm3]`` run in a second process on the same
+Phases 13, 14 and 20 and ``[sample-mm3]`` run in a second process on the same
 card (``chip_smoke.py --cli-group <launches file>``, started after phase 5
 and joined before phase 18; its output is this one's), beside phases 6-17
 in this one: every path is host-bound, and in one process the whole took
@@ -871,7 +888,7 @@ def phase_main_path():
           f"(bound 2e-6), sens {gsens:.3e} (bound 5e-5)", flush=True)
     check(int(gres.status[0]) == 1, "golden: status")
     check(traj < 2e-6 and gsens < 5e-5, "golden: bounds")
-    return launches, run
+    return launches, run, float(nsteps.mean())
 
 
 def build_fit_problem(device):
@@ -2334,6 +2351,180 @@ def phase_sample_mm3(card, steps, burn, fit_iters):
     check(launches["gj_inverse_f32"] > 0 and launches["refine_solve"] > 0
           and launches["gj_inverse_major_f32"] == 0,
           f"sample-mm3: K1 and K2 must launch: {launches}")
+    return launches, out
+
+
+# --------------------------------------------------------------------------
+# The CLI's bench, run_chunked(overlap=), ensemble_sample(log_prob_v=)
+# --------------------------------------------------------------------------
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "detail")
+BENCH_DETAIL = ("batch", "best_batch_seconds", "compile_seconds",
+                "compile_cache_hit", "ok_members", "backend", "mean_nsteps")
+CHUNKED_STARTS = FIT_STARTS     # [chunked-overlap]: [fit]'s starts
+CHUNKED_SIZE = 64               # in 4 chunks
+CHUNKED_SCREEN_ITERS = 2        # [fit]'s screen: 8 (a cut of depth)
+MCMC_WALKERS = 16               # [mcmc-log-prob-v]: [sample-mm3]'s first 16
+MCMC_SWEEPS = 2                 # walkers of its ball, [sample-mm3]'s sweeps
+
+
+def phase_bench(card, main_nsteps):
+    """``cli.main(["bench"])`` at its defaults (batch 256, 3 repeats, the
+    'pallas' kernels): the reference's keys, every member done, K1 and K2
+    launched, and ``mean_nsteps`` equal to [main]'s (the same members at
+    the same batch on the same card)."""
+    import io
+
+    import torch
+
+    from tpusysbio_torch import cli
+    from tpusysbio_torch.linalg import gpu_lu
+
+    knobs = sorted(k for k in os.environ if k.startswith("TPUSYSBIO_BENCH_"))
+    check(not knobs, f"bench: the environment sets {knobs}")
+    buf = io.StringIO()
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(["bench"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    line = buf.getvalue().strip().splitlines()[-1]
+    rec = json.loads(line)
+    print(f"[bench] {card}\n{line}", flush=True)
+    d = rec.get("detail", {})
+    print(f"[bench] wall {wall:.2f} s; mean_nsteps {d.get('mean_nsteps')} "
+          f"([main]'s {main_nsteps}); launches {launches}", flush=True)
+    check(rec == out["record"], "bench: the printed line is not the record")
+    check(all(k in rec for k in BENCH_KEYS)
+          and all(k in d for k in BENCH_DETAIL),
+          f"bench: keys {sorted(rec)}, detail {sorted(d)}")
+    check(d["batch"] == BATCH and d["ok_members"] == BATCH,
+          f"bench: {d['ok_members']}/{d['batch']} members status == 1")
+    check(d["backend"] == "cuda", f"bench: backend {d['backend']}")
+    check(d["mean_nsteps"] == main_nsteps,
+          f"bench: mean_nsteps {d['mean_nsteps']} != [main]'s "
+          f"{main_nsteps}")
+    check(rec["value"] > 0 and rec["vs_baseline"] is not None,
+          f"bench: value {rec['value']}, vs_baseline {rec['vs_baseline']}")
+    check_k1_k2("bench", launches)
+    return launches
+
+
+def phase_chunked_overlap(card, problem):
+    """[fit]'s screening runner over its 256 starts in 4 chunks of 64
+    through ``run_chunked`` with a checkpoint, ``overlap=True`` then
+    ``overlap=False``: every channel and every checkpoint array equal bit
+    for bit; a resumed ``overlap=True`` run skips all 4 chunks with the
+    same costs. The screen runs ``CHUNKED_SCREEN_ITERS`` LM iterations."""
+    from tpusysbio_torch.fit import run_chunked
+    from tpusysbio_torch.fit.multistart import _RANK_KEYS
+    from tpusysbio_torch.linalg import gpu_lu
+
+    tight, screen, _, starts = problem
+    fit = two_phase(tight, screen, FIT_TOP_K, CHUNKED_SCREEN_ITERS, 1)
+    n_chunks = CHUNKED_STARTS // CHUNKED_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(overlap, name):
+            t0 = time.perf_counter()
+            res, resumed = run_chunked(
+                fit.screen_run, starts, CHUNKED_SIZE,
+                checkpoint_path=os.path.join(tmp, name),
+                trace_len=CHUNKED_SCREEN_ITERS, channels="rank",
+                config=fit.screen_config, run_tag="headline_mapk22",
+                overlap=overlap, as_numpy=True)
+            return res, resumed, time.perf_counter() - t0
+
+        gpu_lu.reset_launches()
+        over, r_over, w_over = run(True, "overlap.npz")
+        launches = dict(gpu_lu.LAUNCHES)
+        serial, r_serial, w_serial = run(False, "serial.npz")
+        again, r_again, w_again = run(True, "overlap.npz")
+        a = np.load(os.path.join(tmp, "overlap.npz"))
+        b = np.load(os.path.join(tmp, "serial.npz"))
+        files_equal = set(a.files) == set(b.files) and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+        done = int(a["chunks_done"])
+    equal = {k: bool(np.array_equal(getattr(over, k), getattr(serial, k)))
+             for k in _RANK_KEYS}
+    cost = over.cost
+    print(f"[chunked-overlap] {card}: {CHUNKED_STARTS} starts in "
+          f"{n_chunks} chunks of {CHUNKED_SIZE}, {CHUNKED_SCREEN_ITERS} "
+          f"screen LM iterations: overlap=True wall {w_over:.2f} s, "
+          f"overlap=False {w_serial:.2f} s; channels equal {equal}, "
+          f"checkpoint arrays equal {files_equal} ({done} chunks); resumed "
+          f"run {r_again} chunks skipped in {w_again:.3f} s; "
+          f"{int(np.isfinite(cost).sum())}/{CHUNKED_STARTS} finite costs; "
+          f"launches {launches}", flush=True)
+    check(r_over == 0 and r_serial == 0, "chunked-overlap: a fresh run "
+          f"resumed {r_over}, {r_serial} chunks")
+    check(all(equal.values()), f"chunked-overlap: channels differ {equal}")
+    check(files_equal and done == n_chunks,
+          f"chunked-overlap: checkpoints differ ({done} chunks)")
+    check(r_again == n_chunks
+          and bool(np.array_equal(again.cost, over.cost)),
+          f"chunked-overlap: the resumed run skipped {r_again} chunks")
+    check(int(np.isfinite(cost).sum()) >= 200,
+          "chunked-overlap: fewer than 200 finite screened costs")
+    check_k1_k2("chunked-overlap", launches, need_k2=False)
+    return launches
+
+
+def phase_mcmc_log_prob_v(card, sample_out):
+    """``ensemble_sample`` on the card over [sample-mm3]'s MM-3 log
+    posterior, ``MCMC_WALKERS`` walkers of its ball and ``MCMC_SWEEPS``
+    sweeps, twice: through ``log_prob_v`` scoring each batch in two
+    blocks, and through the default evaluator with a ``log_prob_fn`` that
+    splits the same way. The override must see every evaluation and the
+    two chains and acceptances must be equal bit for bit."""
+    import torch
+
+    from tpusysbio_torch.fit import ensemble_sample
+    from tpusysbio_torch.linalg import gpu_lu
+
+    proj = sample_out["project"]
+    x0 = torch.as_tensor(sample_out["x0"][:MCMC_WALKERS], device="cuda")
+
+    def two_blocks(th):
+        n = th.shape[0] // 2
+        return torch.cat([-proj.cost(th[:n]), -proj.cost(th[n:])])
+
+    calls = []
+
+    def lpv(th):
+        calls.append(th.shape[0])
+        return two_blocks(th)
+
+    def never(th):
+        fail("mcmc-log-prob-v: log_prob_fn called beside log_prob_v")
+
+    gpu_lu.reset_launches()
+    t0 = time.perf_counter()
+    over = ensemble_sample(never, x0, MCMC_SWEEPS,
+                           torch.Generator().manual_seed(0), log_prob_v=lpv)
+    torch.cuda.synchronize()
+    w_over = time.perf_counter() - t0
+    launches = dict(gpu_lu.LAUNCHES)
+    t0 = time.perf_counter()
+    plain = ensemble_sample(two_blocks, x0, MCMC_SWEEPS,
+                            torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    w_plain = time.perf_counter() - t0
+    want = [MCMC_WALKERS] + [MCMC_WALKERS // 2] * (2 * MCMC_SWEEPS)
+    same = {k: bool(torch.equal(getattr(over, k), getattr(plain, k)))
+            for k in ("chain", "log_prob", "acceptance")}
+    print(f"[mcmc-log-prob-v] {card}: {MCMC_WALKERS} walkers, "
+          f"{MCMC_SWEEPS} sweeps, each batch in two blocks: log_prob_v "
+          f"wall {w_over:.2f} s, the default evaluator {w_plain:.2f} s; "
+          f"override calls {calls}; equal {same}; acceptance "
+          f"{over.acceptance.cpu().numpy().tolist()}; launches {launches}",
+          flush=True)
+    check(calls == want, f"mcmc-log-prob-v: override calls {calls}")
+    check(all(same.values()), f"mcmc-log-prob-v: the chains differ {same}")
+    check(bool(torch.isfinite(over.log_prob).all()),
+          "mcmc-log-prob-v: a log-prob not finite")
+    check_k1_k2("mcmc-log-prob-v", launches)
     return launches
 
 
@@ -4360,9 +4551,11 @@ def cli_group_main(launches_path):
     laps("pulse")
     launches["preeq"] = phase_preeq(card)
     laps("preeq")
-    launches["sample-mm3"] = phase_sample_mm3(card, SAMPLE_STEPS, SAMPLE_BURN,
-                                              SAMPLE_FIT_ITERS)
+    launches["sample-mm3"], sample_out = phase_sample_mm3(
+        card, SAMPLE_STEPS, SAMPLE_BURN, SAMPLE_FIT_ITERS)
     laps("sample-mm3")
+    launches["mcmc-log-prob-v"] = phase_mcmc_log_prob_v(card, sample_out)
+    laps("mcmc-log-prob-v")
     laps.report("the CLI group (a process of its own)")
     with open(launches_path, "w") as fh:
         json.dump(launches, fh)
@@ -4372,10 +4565,14 @@ def parent_paths(card, laps):
     """The paths of the first process that run beside the CLI group: the
     main path, the fit and EGFR paths, the small models' golden runs, the
     TRF path, the other steppers and the surfaces."""
-    l_main, run = phase_main_path()
+    l_main, run, main_nsteps = phase_main_path()
     laps("main")
+    l_bench = phase_bench(card, main_nsteps)
+    laps("bench")
     (l_fit, l_screen, l_polish), problem, fit_top, fit_ref = phase_fit()
     laps("fit")
+    l_chunked = phase_chunked_overlap(card, problem)
+    laps("chunked-overlap")
     l_major = phase_fit_major(problem)
     laps("fit-major")
     l_mesh = phase_mesh_fit(card, fit_ref)
@@ -4388,7 +4585,8 @@ def parent_paths(card, laps):
     laps("egfr-major")
     phase_golden_small(card)
     laps("golden-small")
-    l_small = {"mesh-fit": l_mesh,
+    l_small = {"bench": l_bench, "chunked-overlap": l_chunked,
+               "mesh-fit": l_mesh,
                "fit-trf": phase_fit_trf(card, problem, fit_top,
                                         FIT_TRF_ITERS)}
     laps("fit-trf")

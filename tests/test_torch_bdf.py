@@ -9,6 +9,8 @@ the first four members of the seed-0 log-normal spread go through
 PyTorch twins and the reference's Pallas kernels run in interpret mode.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,6 +100,36 @@ def test_bench_contract_sensitivities_agree(reference, port):
     sens, ref = res.sens.numpy(), reference.sens
     assert sens.shape == ref.shape == (B, 41, 22, 30)
     assert np.max(np.abs(sens - ref)) / np.max(np.abs(ref)) <= 1e-4
+
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL = {"batch", "best_batch_seconds", "compile_seconds",
+                "compile_cache_hit", "ok_members", "backend", "mean_nsteps"}
+
+
+def test_bench_main_on_the_cpu(reference, monkeypatch, capsys):
+    """``tpusysbio_torch.bench.main(device="cpu")`` at B=4, one repeat:
+    ``bench.py``'s members and keys, every member done, and the mean step
+    count of the reference's bench integrate on the same 4 members."""
+    from tpusysbio_torch import bench
+
+    for knob in ("SOLVER", "SENS_PREC", "STEPPER", "NT", "DENSE_WINDOW"):
+        monkeypatch.delenv(f"TPUSYSBIO_BENCH_{knob}", raising=False)
+    monkeypatch.setenv("TPUSYSBIO_BENCH_BATCH", str(B))
+    monkeypatch.setenv("TPUSYSBIO_BENCH_REPEATS", "1")
+    p_true = library.mapk_true_params(device="cpu").numpy()
+    np.testing.assert_array_equal(bench.members(p_true, B),
+                                  _bench_params(B))
+    rec = bench.main(device="cpu")
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == rec
+    assert set(rec) == BENCH_KEYS and set(rec["detail"]) == BENCH_DETAIL
+    d = rec["detail"]
+    assert (d["batch"], d["ok_members"], d["backend"]) == (B, B, "cpu")
+    assert d["compile_cache_hit"] is None
+    assert d["mean_nsteps"] == float(reference.nsteps.mean())
+    assert rec["value"] > 0 and rec["vs_baseline"] > 0
+    assert rec["unit"] == "integrations/sec/chip"
 
 
 def test_cpu_run_launches_no_kernel(port):

@@ -378,9 +378,13 @@ def test_cli_fit_example_at_a_cut_depth(capsys):
     (["simulate", "--solver", "rosenbrock"], "12"),
     (["bench"], "15"),
 ])
-def test_cli_unported_paths_raise(argv, item, tmp_path):
-    """``bench`` (item 15) still raises. The steppers of item 12 are
-    ported since: their cases run to status 1
+def test_cli_unported_paths_raise(argv, item, tmp_path, monkeypatch,
+                                  capsys):
+    """Every case is ported since and runs. ``bench`` (item 15a) runs the
+    root ``bench.py``'s contract through ``tpusysbio_torch/bench.py``; at
+    batch 2 and one repeat on the CPU it prints the reference's JSON line
+    with both members done (tests/test_torch_bdf.py holds its step count
+    against the JAX stepper's). The steppers of item 12 run to status 1
     (tests/test_torch_cli_solvers.py holds them against the JAX CLI).
     ``--plot`` (item 14's surfaces) is ported since: at the smallest depth
     its cases write the reference's PNG files, non-empty
@@ -399,5 +403,12 @@ def test_cli_unported_paths_raise(argv, item, tmp_path):
         for name in names:
             assert os.path.getsize(prefix + name) > 0, name
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli.main(["--cpu"] + argv)
+    monkeypatch.setenv("TPUSYSBIO_BENCH_BATCH", "2")
+    monkeypatch.setenv("TPUSYSBIO_BENCH_REPEATS", "1")
+    rec = cli.main(["--cpu"] + argv)["record"]
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == rec
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline", "detail"}
+    d = rec["detail"]
+    assert (d["batch"], d["ok_members"], d["backend"]) == (2, 2, "cpu")
+    assert rec["value"] > 0 and d["mean_nsteps"] > 0

@@ -101,8 +101,8 @@ def no_cuda(monkeypatch):
 
 
 def _entry_points():
-    from tpusysbio_torch import (cli, compat, convert, default_device,
-                                 examples)
+    from tpusysbio_torch import (bench, cli, compat, convert,
+                                 default_device, examples)
     from tpusysbio_torch.petab_import import from_petab
     from tpusysbio_torch.solvers.multishoot import window_grid
     from tpusysbio_torch.data import (Experiment, ExperimentBatch,
@@ -166,6 +166,8 @@ def _entry_points():
         "cli.main profile": lambda: cli.main(["profile"]),
         "cli.main fit": lambda: cli.main(["fit", "--example", "mm3"]),
         "cli.main sample": lambda: cli.main(["sample"]),
+        "cli.main bench": lambda: cli.main(["bench"]),
+        "bench.main": bench.main,
         "multishoot.window_grid": lambda: window_grid((0.0, 1.0), 2),
         "petab_import.from_petab": lambda: from_petab("problem.yaml"),
         "compat.solve_ivp": lambda: compat.solve_ivp(
@@ -192,7 +194,7 @@ def _entry_points():
     "examples.jakstat_pulse_build_project", "examples.jakstat_pulse_fit",
     "cli.main simulate", "cli.main multistart --config",
     "cli.main profile", "cli.main fit", "cli.main sample",
-    "multishoot.window_grid", "petab_import.from_petab", "compat.solve_ivp",
+    "cli.main bench", "bench.main", "multishoot.window_grid", "petab_import.from_petab", "compat.solve_ivp",
     "compat.odeint", "compat.leastsq", "compat.least_squares"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     fn = _entry_points()[name]
@@ -212,7 +214,8 @@ def test_port_files_cover_the_fit_subpackages():
                 "optim/loss.py", "optim/trf.py", "fit/mcmc.py",
                 "linalg/banded.py", "model/sympy_import.py",
                 "model/sbml_import.py", "model/sbml_export.py",
-                "data/io.py", "petab_import.py", "compat.py", "viz.py"):
+                "data/io.py", "petab_import.py", "compat.py", "viz.py",
+                "bench.py"):
         assert f"tpusysbio_torch/{sub}" in rel
 
 
@@ -223,3 +226,97 @@ def test_explicit_cpu_runs_without_cuda(no_cuda):
     p = library.mapk_true_params(device="cpu")[None]
     res = model.simulate(p, (0.0, 0.01), [0.01], device="cpu")
     assert res.ys.device.type == "cpu" and int(res.status[0]) == 1
+
+
+# --------------------------------------------------------------------------
+# The package surface: every public name of the reference's __init__ files
+# --------------------------------------------------------------------------
+
+REF_INITS = sorted((ROOT / "tpusysbio").rglob("__init__.py"))
+
+
+def _bound_names(path: pathlib.Path, own: str) -> set:
+    """The public names an ``__init__.py`` binds at its top level: its
+    functions, classes and assignments, and what it imports from its own
+    package ``own``. Third-party imports (``jax``, ``numpy``, ``typing``)
+    are not part of its surface."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and (
+                node.module.split(".")[0] == own):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("ref", REF_INITS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_exports_every_public_name_of_the_reference(ref):
+    """Read by AST (no JAX import): each name the reference's
+    ``__init__.py`` exports is bound by the port's counterpart, and is an
+    attribute of the imported port module."""
+    import importlib
+
+    port = ROOT / "tpusysbio_torch" / ref.relative_to(ROOT / "tpusysbio")
+    want = _bound_names(ref, "tpusysbio")
+    assert want, ref
+    missing = want - _bound_names(port, "tpusysbio_torch")
+    assert not missing, f"{port.relative_to(ROOT)} lacks {sorted(missing)}"
+    mod = importlib.import_module(".".join(
+        port.relative_to(ROOT).parent.parts))
+    assert all(hasattr(mod, n) for n in want)
+
+
+def test_importing_linalg_builds_and_loads_nothing():
+    """``inverse`` is exported, and its kernel library stays lazy: a fresh
+    interpreter that imports the package finds nothing built or loaded."""
+    import subprocess
+    import sys
+
+    code = ("import tpusysbio_torch.linalg as la\n"
+            "from tpusysbio_torch.linalg import _build\n"
+            "assert callable(la.inverse) and callable(la.solve)\n"
+            "assert _build._lib is None and not _build.build_info\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_exported_solve_and_inverse_on_the_cpu():
+    from tpusysbio_torch import linalg
+
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor(np.eye(5)[None] + 0.1 * rng.normal(size=(3, 5, 5)))
+    b = torch.as_tensor(rng.normal(size=(3, 5)))
+    want = np.linalg.solve(a.numpy(), b.numpy()[..., None])[..., 0]
+    np.testing.assert_allclose(linalg.solve(a, b).numpy(), want,
+                               rtol=1e-12, atol=1e-13)
+    np.testing.assert_allclose(linalg.inverse(a).numpy(),
+                               np.linalg.inv(a.numpy()), rtol=1e-10,
+                               atol=1e-12)
+
+
+def test_banded_helpers_take_the_reference_keyword():
+    """``band_to_dense(B=...)`` and ``banded_factor(B=...)`` by keyword,
+    as the reference names the parameter, equal to the reference's."""
+    import jax.numpy as jnp
+
+    from tpusysbio.linalg import banded as jbanded
+    from tpusysbio_torch.linalg import banded
+
+    kl, ku, n = 2, 1, 9
+    rng = np.random.default_rng(3)
+    A = 4.0 * np.eye(n) + np.triu(np.tril(rng.normal(size=(n, n)), ku),
+                                  -kl)
+    Bj = jbanded.band_from_dense(jnp.asarray(A), kl, ku)
+    Bt = banded.band_from_dense(torch.as_tensor(A)[None], kl, ku)
+    np.testing.assert_array_equal(
+        banded.band_to_dense(B=Bt, kl=kl, ku=ku)[0].numpy(),
+        np.asarray(jbanded.band_to_dense(B=Bj, kl=kl, ku=ku)))
+    np.testing.assert_allclose(
+        banded.banded_factor(B=Bt, kl=kl, ku=ku)[0].numpy(),
+        np.asarray(jbanded.banded_factor(B=Bj, kl=kl, ku=ku)), rtol=0,
+        atol=1e-13)

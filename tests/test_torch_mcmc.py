@@ -125,6 +125,40 @@ def test_determinism_and_thin():
     assert torch.equal(t.acceptance, a.acceptance)
 
 
+def two_blocks(th):
+    """``logp`` evaluated in two blocks of rows: the split a two-rank mesh
+    makes (tests/test_torch_mesh.py)."""
+    n = th.shape[0] // 2
+    return torch.cat([logp(th[:n]), logp(th[n:])])
+
+
+def test_log_prob_v_override_gives_the_default_chain():
+    """tests/test_mcmc.py::test_mesh_sharded_walkers_bitwise_match in one
+    process: an override that evaluates each half in two blocks scores
+    ``x0`` and both halves of every sweep (``log_prob_fn`` is never
+    called), and gives the chain, log-probs and acceptance of the default
+    evaluator at the same block split, bit for bit (on the CPU, bits per
+    member hold only at equal batch size)."""
+    W, n_steps = 32, 40
+    x0 = torch.as_tensor(THETA + 0.05 * np.random.default_rng(9)
+                         .normal(size=(W, 3)))
+    calls = []
+
+    def lpv(th):
+        calls.append(th.shape[0])
+        return two_blocks(th)
+
+    def never(th):
+        raise AssertionError("log_prob_fn called beside log_prob_v")
+
+    a = ensemble_sample(two_blocks, x0, n_steps, _gen(11))
+    b = ensemble_sample(never, x0, n_steps, _gen(11), log_prob_v=lpv)
+    assert calls == [W] + [W // 2] * (2 * n_steps)
+    assert torch.equal(a.chain, b.chain)
+    assert torch.equal(a.log_prob, b.log_prob)
+    assert torch.equal(a.acceptance, b.acceptance)
+
+
 def test_bounded_support_rejection():
     """After tests/test_mcmc.py: -inf outside a box and NaN in one corner
     of it. Every kept sample stays inside and off the NaN corner, and

@@ -11,14 +11,19 @@ The fixture below starts two of them (``init_method=file://``, no port to
 race for) and each writes its gathered results to ``<out>.<rank>.npz``;
 the tests hold both ranks equal bit for bit and equal to the references.
 The cases (``CASES``): (a) ``multistart_fit`` on Rosenbrock, plain and
-checkpointed in chunks; (b) ``compact=True`` under ``iter_chunk``; (c) a
+checkpointed in chunks (``run_chunked``'s default ``overlap=True``: rank
+0's writer thread beside the next chunk's fit); (b) ``compact=True`` under ``iter_chunk``; (c) a
 two-phase MM-3 fit under ``linear_solver='pallas'`` (the plain twin here)
 with a top_k that the mesh divides and one it does not; (d)
 ``profile_likelihood`` on a quadratic; (e) ``Project(experiment_mesh=)``
 over 8 experiments and over 3 (timed inputs and an initial-value override
 among them, and tests/test_torch_events.py's pre-equilibrated batch with
-a steady-state row). Rosenbrock and the quadratic are elementwise, so the
-sharded runs equal the single-process ones bit for bit; a ``Project``
+a steady-state row); (f) ``ensemble_sample(log_prob_v=)`` with each rank
+scoring its block of the walkers and ``utils.all_gather`` collecting
+them, against the one-process chain whose ``log_prob_fn`` splits the
+rows into the same two blocks. Rosenbrock, the quadratic and the blocks
+of (f) are elementwise or of equal size, so the sharded runs equal the
+single-process ones bit for bit; a ``Project``
 goes through batched CPU matmuls, which round by batch size (ROADMAP
 Queue 3), so those are held to the reference's tolerances.
 """
@@ -39,8 +44,9 @@ if REPO not in sys.path:
 
 from tpusysbio_torch import FitConfig, SolverConfig, utils  # noqa: E402
 from tpusysbio_torch.fit import (TwoPhaseDriver,  # noqa: E402
-                                 make_multistart_runner, multistart_fit,
-                                 profile_likelihood, run_chunked)
+                                 ensemble_sample, make_multistart_runner,
+                                 multistart_fit, profile_likelihood,
+                                 run_chunked)
 
 torch.set_num_threads(1)
 
@@ -51,6 +57,10 @@ ROS_STARTS = np.random.default_rng(7).uniform(-1.5, 1.5, size=(16, 2))
 COMPACT_STARTS = np.random.default_rng(9).normal(scale=1.0, size=(32, 2))
 QUAD_TARGET = np.array([1.0, -2.0, 0.5, 3.0])
 QUAD_SIGMA = np.array([0.5, 2.0, 1.0, 0.25])
+MC_A = np.random.default_rng(0).normal(size=(12, 3))
+MC_X0 = (np.array([1.0, -0.5, 2.0])
+         + 0.05 * np.random.default_rng(9).normal(size=(16, 3)))
+MC_STEPS = 20
 MM_FREE = ("k2", "E0")
 MM_TRUE = {"k1": 10.0, "km1": 1.0, "k2": 1.5, "E0": 0.5}
 
@@ -300,8 +310,35 @@ def case_project(mesh, ck_dir):
     return out
 
 
+def mc_logp(th):
+    """The linear-Gaussian posterior of tests/test_torch_mcmc.py, rows of
+    ``th`` (W', 3) -> (W',)."""
+    A = torch.as_tensor(MC_A)
+    b = A @ torch.tensor([1.0, -0.5, 2.0], dtype=torch.float64)
+    return -0.5 * torch.sum((th @ A.T - b) ** 2, dim=1)
+
+
+def case_mcmc(mesh, ck_dir):
+    x0 = torch.as_tensor(MC_X0)
+    gen = torch.Generator().manual_seed(11)
+    if mesh is None:
+        def two_blocks(th):
+            n = th.shape[0] // 2
+            return torch.cat([mc_logp(th[:n]), mc_logp(th[n:])])
+
+        res = ensemble_sample(two_blocks, x0, MC_STEPS, gen)
+    else:
+        def lpv(th):
+            mine = mc_logp(th[mesh.block(th.shape[0])])
+            return torch.cat(utils.all_gather(mine, mesh))
+
+        res = ensemble_sample(mc_logp, x0, MC_STEPS, gen, log_prob_v=lpv)
+    return {"f_chain": res.chain.numpy(), "f_log_prob": res.log_prob.numpy(),
+            "f_acceptance": res.acceptance.numpy()}
+
+
 CASES = (case_rosenbrock, case_compact, case_two_phase, case_profile,
-         case_project)
+         case_project, case_mcmc)
 
 
 def worker(rank, world, init_file, out, case):
@@ -432,6 +469,16 @@ def test_multistart_fit_matches_single_process_and_reference(ranks):
     np.testing.assert_allclose(g["a_theta"], np.asarray(ref.theta),
                                rtol=1e-10, atol=1e-10)
     np.testing.assert_array_equal(g["a_status"], np.asarray(ref.status))
+
+
+def test_ensemble_sample_log_prob_v_over_the_mesh(ranks):
+    """(f) 16 walkers, 20 sweeps: each rank scores its 4 walkers of a half
+    (8 of ``x0``) and all-gathers; the chain, log-probs and acceptance
+    equal the one-process chain at the same block split bit for bit."""
+    got, single = ranks
+    for k in ("f_chain", "f_log_prob", "f_acceptance"):
+        np.testing.assert_array_equal(got[0][k], single[k], err_msg=k)
+    assert got[0]["f_chain"].shape == (MC_STEPS, 16, 3)
 
 
 def test_compaction_under_mesh_matches_reference(ranks):

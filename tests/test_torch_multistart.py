@@ -143,6 +143,110 @@ def test_run_chunked_checkpoint_resume_and_digest(tmp_path):
     assert resumed == 0
 
 
+# tests/test_fit.py's Rosenbrock: r = (10(θ1-θ0²), 1-θ0), 8 starts
+ROS_STARTS = np.random.default_rng(7).uniform(-1.5, 1.5, size=(8, 2))
+ROS_FIELDS = ("theta", "cost", "grad_norm", "status", "n_iter", "cov",
+              "param_sigma", "cost_trace")
+
+
+def _ros_r(th):
+    return torch.stack([10.0 * (th[:, 1] - th[:, 0] ** 2), 1.0 - th[:, 0]],
+                       dim=1)
+
+
+def _ros_rj(th):
+    z = torch.zeros_like(th[:, 0])
+    J = torch.stack([torch.stack([-20.0 * th[:, 0], z + 10.0], dim=1),
+                     torch.stack([z - 1.0, z], dim=1)], dim=1)
+    return _ros_r(th), J
+
+
+def test_run_chunked_overlap_matches_serial(tmp_path):
+    """tests/test_fit.py::test_run_chunked_overlap_matches_serial on the
+    port: the writer thread (run at a 1 µs switch interval, so that it
+    interleaves with the fits) changes nothing. Every channel and every
+    checkpoint array equal ``overlap=False``'s bit for bit, a resumed
+    overlapped run skips all 4 chunks with the same costs, and the costs
+    equal the JAX package's ``run_chunked`` on the same starts to
+    1e-10."""
+    import sys
+
+    import jax
+
+    cfg = FitConfig(max_iter=25)
+    runner = make_multistart_runner(_ros_r, _ros_rj, cfg)
+    th = torch.as_tensor(ROS_STARTS)
+    ck_a, ck_b = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        res_a, _ = run_chunked(runner, th, 2, checkpoint_path=ck_a,
+                               trace_len=cfg.max_iter, config=cfg,
+                               overlap=True)
+    finally:
+        sys.setswitchinterval(interval)
+    res_b, _ = run_chunked(runner, th, 2, checkpoint_path=ck_b,
+                           trace_len=cfg.max_iter, config=cfg,
+                           overlap=False)
+    for field in ROS_FIELDS:
+        np.testing.assert_array_equal(getattr(res_a, field).numpy(),
+                                      getattr(res_b, field).numpy(),
+                                      err_msg=field)
+    a, b = np.load(ck_a), np.load(ck_b)
+    assert set(a.files) == set(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert int(a["chunks_done"]) == 4
+    res_c, resumed = run_chunked(runner, th, 2, checkpoint_path=ck_a,
+                                 trace_len=cfg.max_iter, config=cfg)
+    assert resumed == 4
+    np.testing.assert_array_equal(res_c.cost.numpy(), res_a.cost.numpy())
+
+    def jr(t):
+        return jnp.stack([10.0 * (t[1] - t[0] ** 2), 1.0 - t[0]])
+
+    jcfg = JFitConfig(max_iter=25)
+    jrun = jms.make_multistart_runner(
+        jr, lambda t: (jr(t), jax.jacfwd(jr)(t)), jcfg)
+    ref, _ = jms.run_chunked(jrun, jnp.asarray(ROS_STARTS), 2,
+                             trace_len=25, config=jcfg)
+    np.testing.assert_allclose(res_a.cost.numpy(), np.asarray(ref.cost),
+                               rtol=1e-10, atol=1e-10)
+    np.testing.assert_array_equal(res_a.status.numpy(),
+                                  np.asarray(ref.status))
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_run_chunked_fails_when_a_checkpoint_write_fails(tmp_path,
+                                                         monkeypatch,
+                                                         overlap):
+    """A write that raises (here on the third chunk; in the writer thread
+    under ``overlap=True``) fails the call with its exception, and the
+    checkpoint keeps the last good chunk."""
+    import threading
+
+    from tpusysbio_torch.fit import multistart
+
+    real, seen = multistart._atomic_savez, []
+
+    def flaky(path, **arrays):
+        seen.append(threading.current_thread() is threading.main_thread())
+        if int(arrays["chunks_done"]) == 3:
+            raise OSError("disk full")
+        real(path, **arrays)
+
+    monkeypatch.setattr(multistart, "_atomic_savez", flaky)
+    cfg = FitConfig(max_iter=5)
+    runner = make_multistart_runner(_ros_r, _ros_rj, cfg)
+    path = str(tmp_path / "ck.npz")
+    with pytest.raises(OSError, match="disk full"):
+        run_chunked(runner, torch.as_tensor(ROS_STARTS), 2,
+                    checkpoint_path=path, trace_len=5, config=cfg,
+                    overlap=overlap)
+    assert seen == [not overlap] * 3
+    assert int(np.load(path)["chunks_done"]) == 2
+
+
 def test_run_chunked_argument_checks():
     cfg = FitConfig(max_iter=5)
     th = _starts(6)

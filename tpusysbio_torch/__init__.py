@@ -50,4 +50,8 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-from tpusysbio_torch.config import FitConfig, SolverConfig  # noqa: E402,F401
+from tpusysbio_torch.config import (  # noqa: E402,F401
+    FitConfig,
+    MeshConfig,
+    SolverConfig,
+)

@@ -8,6 +8,7 @@ The same subcommands, flags and printed JSON keys as the reference:
     python -m tpusysbio_torch.cli multistart --config configs/mm3.yaml
     python -m tpusysbio_torch.cli profile    --model mm3
     python -m tpusysbio_torch.cli sample     --model mm3
+    python -m tpusysbio_torch.cli bench
 
 It runs on the GPU; ``--cpu`` asks for the CPU, and without CUDA and
 without ``--cpu`` it raises. Every call returns, besides what it prints, a
@@ -33,8 +34,9 @@ Differences from the reference:
 - ``--plot PREFIX`` (``multistart``, ``profile``) writes the reference's
   PNG files through ``viz.py``; without matplotlib it raises the
   ``ImportError`` naming it before any fit runs;
-- not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-  ``bench``.
+- ``bench`` runs the root ``bench.py``'s contract through the port
+  (``tpusysbio_torch/bench.py``), on the card or, with ``--cpu``, on the
+  CPU, and prints the reference's JSON line.
 """
 
 from __future__ import annotations
@@ -84,12 +86,6 @@ _FREE_PARAMS = {
     # receptor module + layer-0 kinase/phosphatase rates
     "egfr": "L+Rec|LR+A0_0|LR+A0_1|P0+A0_1",
 }
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to tpusysbio_torch yet (ROADMAP Queue 1 "
-        f"item {item})")
 
 
 def _device(args) -> torch.device:
@@ -179,7 +175,9 @@ def cmd_fit(args):
 
 
 def cmd_bench(args):
-    _unported("the bench subcommand (bench.py)", "15")
+    from tpusysbio_torch import bench
+
+    return {"record": bench.main(device=_device(args))}
 
 
 def _synth_problem(args, device):
@@ -547,7 +545,7 @@ def main(argv=None):
                             "example's own)")
     p_fit.set_defaults(fn=cmd_fit)
 
-    p_bench = sub.add_parser("bench", help="(not ported)")
+    p_bench = sub.add_parser("bench", help="run the headline benchmark")
     p_bench.set_defaults(fn=cmd_bench)
 
     p_ms = sub.add_parser(

@@ -22,7 +22,7 @@ Contract notes:
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -94,12 +94,22 @@ def _draws(generator: torch.Generator, half: int, dtype, device):
 
 def ensemble_sample(log_prob_fn: Callable, x0: torch.Tensor, n_steps: int,
                     generator: torch.Generator, a: float = 2.0,
-                    thin: int = 1) -> MCMCResult:
+                    thin: int = 1,
+                    log_prob_v: Optional[Callable] = None) -> MCMCResult:
     """Run W walkers for ``n_steps`` stretch-move sweeps from ``x0`` (W, G).
 
     W must be even and at least 4, and should be ≥ 2·G (emcee guidance).
     ``thin`` keeps every thin-th sweep (sweeps ``thin-1::thin``) and must
     divide ``n_steps``.
+
+    ``log_prob_v`` optionally overrides the batch evaluator ``(W', G) ->
+    (W',)`` that scores ``x0`` and both halves of every sweep (by default
+    ``log_prob_fn`` itself). It can shard the walker axis, which is
+    embarrassingly parallel: on a mesh (``utils.make_mesh``) each rank
+    evaluates its block ``mesh.block(W')`` of the rows and
+    ``utils.all_gather`` collects the blocks, every rank passing the same
+    walkers. The draws still come from ``generator``, so the chain
+    depends only on the values the evaluator returns.
     """
     W, G = x0.shape
     if W % 2:
@@ -108,11 +118,12 @@ def ensemble_sample(log_prob_fn: Callable, x0: torch.Tensor, n_steps: int,
         raise ValueError("need at least 4 walkers (2 per half)")
     if n_steps % thin:
         raise ValueError("thin must divide n_steps")
-    x, lp = x0, log_prob_fn(x0)
+    lpv = log_prob_v if log_prob_v is not None else log_prob_fn
+    x, lp = x0, lpv(x0)
     xs, lps, accs = [], [], []
     for _ in range(n_steps):
         draws = _draws(generator, W // 2, x0.dtype, x0.device)
-        x, lp, acc = _sweep(x, lp, log_prob_fn, a, draws)
+        x, lp, acc = _sweep(x, lp, lpv, a, draws)
         xs.append(x)
         lps.append(lp)
         accs.append(acc)

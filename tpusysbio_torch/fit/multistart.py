@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -339,6 +340,29 @@ def _load_checkpoint(path: str, keys, n_theta: int, digest: np.ndarray,
     return acc, done
 
 
+def _host_copies(fr, keys):
+    """The channels ``keys`` of a chunk's result on their way to the host,
+    and the CUDA event that marks their arrival (None where nothing came
+    from a card). A card's tensor is copied into a pinned buffer without
+    waiting: the copy is queued on the stream ahead of the next chunk's
+    work, so it runs while the host goes on. Host data is copied at once,
+    so that the next chunk cannot change what the writer reads."""
+    host, card = {}, None
+    for k in keys:
+        v = getattr(fr, k)
+        if isinstance(v, torch.Tensor) and v.device.type == "cuda":
+            buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            buf.copy_(v.detach(), non_blocking=True)
+            host[k], card = buf, v.device
+        else:
+            host[k] = np.array(_to_numpy(v))
+    if card is None:
+        return host, None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(card))
+    return host, event
+
+
 def run_chunked(
     runner: Callable,
     theta0s: torch.Tensor,
@@ -349,6 +373,7 @@ def run_chunked(
     channels: str = "all",
     config: Optional[FitConfig] = None,
     run_tag: str = "",
+    overlap: bool = True,
     as_numpy: bool = False,
 ):
     """Run a ``make_multistart_runner`` callable over sequential chunks of
@@ -375,10 +400,22 @@ def run_chunked(
     accumulated results on the host (they arrive there anyway for the
     checkpoint); otherwise they return to the device of ``theta0s``.
 
+    ``overlap=True`` (the default) moves chunk c's results to the host
+    and writes its checkpoint while chunk c+1 fits: the copies are queued
+    on the device's stream into pinned host buffers before chunk c+1's
+    work, and one writer thread waits for them, accumulates and writes.
+    The writer is joined before the next chunk is handed to it and at the
+    end, and an exception raised in it fails the call. Chunk c's
+    checkpoint is still written only after c has fully arrived, so a
+    resumed run recomputes an in-flight c+1. ``overlap=False`` runs every
+    step in turn on the calling thread. The results and the checkpoint
+    contents are the same either way.
+
     A runner built with ``mesh=`` shards every chunk (``chunk_size`` must
     divide by the mesh size); rank 0 writes the checkpoint after each
-    chunk's gather, the others wait for it, and every rank resumes from
-    the same file, which must lie where every rank can read it.
+    chunk's gather, every rank waits at a barrier once the write of that
+    chunk is joined, and every rank resumes from the same file, which must
+    lie where every rank can read it.
     """
     if channels not in ("all", "rank"):
         raise ValueError(f"unknown channels {channels!r}")
@@ -407,19 +444,44 @@ def run_chunked(
                 f"rank: {seen}): {checkpoint_path} must be one file that "
                 "every rank reads")
 
-    for c in range(done, n_chunks):
-        fr = runner(theta0s[c * chunk_size:(c + 1) * chunk_size])
-        if channels == "all" and fr.cov is None:
-            raise ValueError(
-                "channels='all' needs a runner built with with_cov=True")
-        parts.append({k: _to_numpy(getattr(fr, k)) for k in keys})
+    def write(host, event, c):
+        # the writer's own state is ``parts``: the calling thread touches
+        # it only after joining the writer
+        if event is not None:
+            event.synchronize()
+        parts.append({k: _to_numpy(v) for k, v in host.items()})
         if checkpoint_path:
             acc = {k: np.concatenate([p[k] for p in parts]) for k in keys}
             if mesh is None or mesh.rank == 0:
                 _atomic_savez(checkpoint_path, chunks_done=c + 1,
                               run_digest=digest, **acc)
-            barrier(mesh)
             parts[:] = [acc]
+
+    def settle(pending=None):
+        # a failed write raises here; the ranks meet once chunk c is on disk
+        if pending is not None:
+            pending.result()
+        if checkpoint_path:
+            barrier(mesh)
+
+    pending = None
+    with ThreadPoolExecutor(max_workers=1) as writer:
+        for c in range(done, n_chunks):
+            fr = runner(theta0s[c * chunk_size:(c + 1) * chunk_size])
+            if channels == "all" and fr.cov is None:
+                raise ValueError(
+                    "channels='all' needs a runner built with with_cov=True")
+            host, event = _host_copies(fr, keys)
+            if pending is not None:
+                settle(pending)
+                pending = None
+            if overlap:
+                pending = writer.submit(write, host, event, c)
+            else:
+                write(host, event, c)
+                settle()
+        if pending is not None:
+            settle(pending)
 
     acc = {k: np.concatenate([p[k] for p in parts]) for k in keys}
 

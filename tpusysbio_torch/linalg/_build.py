@@ -69,13 +69,18 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(src_dir: Path = SRC_DIR) -> Path:
+    """Where the library of ``src_dir``'s sources is (or will be) built."""
+    return BUILD_ROOT / _digest(sources(src_dir)) / LIB_NAME
+
+
 def compile_library(src_dir: Path = SRC_DIR) -> dict:
     """Compile every ``*.cu`` of ``src_dir`` (if this version is not built
     yet) into one shared library. Returns ``path``, ``cached``, ``seconds``
     and, for a fresh build, the compiler's ``log``."""
     srcs = sources(src_dir)
-    out_dir = BUILD_ROOT / _digest(srcs)
-    lib_path = out_dir / LIB_NAME
+    lib_path = library_path(src_dir)
+    out_dir = lib_path.parent
     if lib_path.exists():
         return dict(path=str(lib_path), seconds=0.0, cached=True)
     nvcc = nvcc_path()

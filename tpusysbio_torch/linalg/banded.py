@@ -7,7 +7,7 @@ their Newton matrices ``I - c·J``: a banded factorization costs
 O(n·kl·(kl+ku)) where a dense one costs O(n³).
 
 - ``band_from_dense(A, kl, ku)``: diagonal-packed storage
-  ``Bp[:, ku + i - j, j] = A[:, i, j]``, shape (B, kl+ku+1, n);
+  ``B[:, ku + i - j, j] = A[:, i, j]``, shape (B, kl+ku+1, n);
 - ``banded_factor``: LU WITHOUT pivoting (the Newton matrices it serves
   are diagonally dominant at the step sizes BDF accepts), with the
   reference's pivot floor ``tiny``; U's diagonals keep the input's rows,
@@ -54,25 +54,25 @@ def band_from_dense(A: torch.Tensor, kl: int, ku: int) -> torch.Tensor:
                                                       device=A.device))
 
 
-def band_to_dense(Bp: torch.Tensor, kl: int, ku: int) -> torch.Tensor:
+def band_to_dense(B: torch.Tensor, kl: int, ku: int) -> torch.Tensor:
     """Inverse of :func:`band_from_dense`, (B, n, n)."""
-    n = Bp.shape[-1]
-    i, j, valid = _band_index(n, kl, ku, Bp.device)
-    A = Bp.new_zeros(Bp.shape[:-2] + (n, n))
-    A[:, i[valid], j[valid]] = Bp[:, valid]
+    n = B.shape[-1]
+    i, j, valid = _band_index(n, kl, ku, B.device)
+    A = B.new_zeros(B.shape[:-2] + (n, n))
+    A[:, i[valid], j[valid]] = B[:, valid]
     return A
 
 
-def banded_factor(Bp: torch.Tensor, kl: int, ku: int) -> torch.Tensor:
-    """LU of banded matrices in packed storage (B, kl+ku+1, n), no
-    pivoting. Returns the packed LU, same shape."""
-    Bsz, w, n = Bp.shape
+def banded_factor(B: torch.Tensor, kl: int, ku: int) -> torch.Tensor:
+    """LU of the banded matrices ``B`` in packed storage (members,
+    kl+ku+1, n), no pivoting. Returns the packed LU, same shape."""
+    Bsz, w, n = B.shape
     npad = n + ku
-    dev = Bp.device
-    W = Bp.new_zeros((Bsz, w, npad))
-    W[:, :, :n] = Bp
+    dev = B.device
+    W = B.new_zeros((Bsz, w, npad))
+    W[:, :, :n] = B
     Wf = W.view(Bsz, w * npad)
-    tiny = torch.tensor(_tiny(Bp.dtype), dtype=Bp.dtype, device=dev)
+    tiny = torch.tensor(_tiny(B.dtype), dtype=B.dtype, device=dev)
     # the window update: for i in 1..kl, d in 1..ku, A[j+i, j+d] (packed
     # row ku+i-d) -= l_i * U[j, j+d] (packed row ku-d), all at column j+d;
     # flat indices into W's (w * npad) view, one row of each per column j

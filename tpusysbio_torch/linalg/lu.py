@@ -60,6 +60,12 @@ def lu_solve(factors, b: torch.Tensor) -> torch.Tensor:
     return x[:, :, 0] if vec else x
 
 
+def solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A x = b`` in one call (factor + solve); ``b`` is (B, n) or
+    (B, n, k)."""
+    return lu_solve(lu_factor(a), b)
+
+
 def lu_inverse(a: torch.Tensor) -> torch.Tensor:
     """Explicit inverse via pivoted LU (one factor + n-column solve)."""
     n = a.shape[-1]

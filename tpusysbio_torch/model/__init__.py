@@ -9,6 +9,7 @@ from tpusysbio_torch.model.massaction import (  # noqa: F401
     NetworkBuilder,
 )
 from tpusysbio_torch.model.sympy_import import from_sympy  # noqa: F401
+from tpusysbio_torch.model import library  # noqa: F401
 
 
 def __getattr__(name):

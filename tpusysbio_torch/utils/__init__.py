@@ -35,6 +35,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from tpusysbio_torch import resolve_device
+from tpusysbio_torch.config import MeshConfig  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
