@@ -1,0 +1,7 @@
+"""Device: share of the profiled unit's wall with no operation on the card, in %; in the 10,000-member cell."""
+
+from portbench.metrics import _layers
+
+
+def read(trace):
+    return _layers.idle_pct(trace)

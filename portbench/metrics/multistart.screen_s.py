@@ -1,0 +1,7 @@
+"""Multi-start driver (fit/multistart.py::TwoPhaseDriver): seconds of a fit's screen (its screen_seconds), mean over the window's fits."""
+
+from portbench.metrics import _layers
+
+
+def read(trace):
+    return _layers.mean_info(trace, 'screen_seconds')
