@@ -635,10 +635,10 @@ def phase_k3(model, rng):
              ("64x64x64 egfr", a64_schur), ("64x35x35 egfr", a35_schur))
     abs_by_case, k1_abs_by_case = {}, {}
     for name, a32 in cases:
-        before = gpu_lu.LAUNCHES["gj_inverse_major_f32"]
+        before = kernel_launches()["gj_inverse_major_f32"]
         got = k3(a32)
         torch.cuda.synchronize()
-        check(gpu_lu.LAUNCHES["gj_inverse_major_f32"] == before + 1,
+        check(kernel_launches()["gj_inverse_major_f32"] == before + 1,
               f"K3 {name}: the launch was not counted")
         ref = gpu_lu.gj_inverse_major_f32_plain(a32)
         other = k1(a32)
@@ -686,10 +686,10 @@ def phase_k3(model, rng):
     # inverse() through block-Schur at n=97 with K3 on both blocks
     a97 = random_newton(rng, 16, 97, scale=0.05)
     with gj_layout("major"):
-        before = gpu_lu.LAUNCHES["gj_inverse_major_f32"]
+        before = kernel_launches()["gj_inverse_major_f32"]
         x = gpu_lu.inverse(a97)
         torch.cuda.synchronize()
-        n_k3 = gpu_lu.LAUNCHES["gj_inverse_major_f32"] - before
+        n_k3 = kernel_launches()["gj_inverse_major_f32"] - before
     check(n_k3 == 2, f"K3 n97 Schur: {n_k3} K3 launches, expected 2")
     eye = torch.eye(97, dtype=torch.float64, device="cuda")
     res = float((x @ a97 - eye).abs().sum(-1).max())
@@ -806,7 +806,6 @@ def phase_main_path():
     import torch
 
     from tpusysbio_torch import SolverConfig
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
 
     model = library.mapk_huang_ferrell(device="cuda")
@@ -825,11 +824,11 @@ def phase_main_path():
         torch.cuda.synchronize()
         return res
 
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     res = run()
     first_s = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     status = res.status.cpu().numpy()
     n_ok = int((status == 1).sum())
     check(n_ok == BATCH, f"main path: {n_ok}/{BATCH} members status == 1")
@@ -946,7 +945,6 @@ def phase_fit():
     import torch
 
     from tpusysbio_torch.fit import latin_hypercube
-    from tpusysbio_torch.linalg import gpu_lu
 
     tight, screen, theta_true = build_fit_problem("cuda")
     check(tight.n_theta == 12 and tight.n_residuals == 36
@@ -958,14 +956,14 @@ def phase_fit():
     fit = two_phase(
         tight, screen, FIT_TOP_K, FIT_SCREEN_ITERS, FIT_POLISH_ITERS,
         on_polish=lambda: at_screen_end.setdefault(
-            "launches", dict(gpu_lu.LAUNCHES)))
+            "launches", kernel_launches()))
 
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     polish, scr, info = fit.run(starts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     l_screen = at_screen_end["launches"]
     l_polish = {k: launches[k] - l_screen[k] for k in launches}
     for k in ("gj_inverse_f32", "refine_solve"):
@@ -1099,7 +1097,6 @@ def phase_fit_major(problem):
 
     from tpusysbio_torch import FitConfig
     from tpusysbio_torch.fit import make_multistart_runner
-    from tpusysbio_torch.linalg import gpu_lu
 
     _, screen, _, starts = problem
     run = make_multistart_runner(
@@ -1110,11 +1107,11 @@ def phase_fit_major(problem):
 
     def one(layout):
         with gj_layout(layout):
-            gpu_lu.reset_launches()
+            reset_counters()
             t0 = time.perf_counter()
             res = run(sub)
             torch.cuda.synchronize()
-            return res, dict(gpu_lu.LAUNCHES), time.perf_counter() - t0
+            return res, kernel_launches(), time.perf_counter() - t0
 
     minor, l_minor, s_minor = one("minor")
     major, l_major, s_major = one("major")
@@ -1204,11 +1201,39 @@ def project_on_cpu(proj, model):
                                batch=moved(proj.batch))
 
 
-def gj_shape_counts(name):
-    """The launches of Gauss-Jordan kernel ``name`` by matrix size."""
+def reset_counters():
+    """Zero the port's counters (``tpusysbio_torch.trace``): the kernel
+    launches read back below count from here."""
+    from tpusysbio_torch import trace
+
+    trace.reset()
+
+
+def kernel_launches():
+    """Launches of each hand-written kernel since ``reset_counters()``."""
+    from tpusysbio_torch import trace
     from tpusysbio_torch.linalg import gpu_lu
 
-    return {n: c for (k, n), c in sorted(gpu_lu.LAUNCHES_BY_N.items())
+    counts = trace.counters()
+    return {k: counts.get("gpu_lu." + k, 0) for k in gpu_lu.KERNELS}
+
+
+def launches_by_size():
+    """The Gauss-Jordan launches by (kernel, n) since
+    ``reset_counters()``."""
+    from tpusysbio_torch import trace
+
+    out = {}
+    for key, c in trace.counters().items():
+        kernel, _, size = key[len("gpu_lu."):].rpartition(".n")
+        if key.startswith("gpu_lu.") and kernel and size.isdigit():
+            out[kernel, int(size)] = c
+    return out
+
+
+def gj_shape_counts(name):
+    """The launches of Gauss-Jordan kernel ``name`` by matrix size."""
+    return {n: c for (k, n), c in sorted(launches_by_size().items())
             if k == name}
 
 
@@ -1233,7 +1258,6 @@ def phase_egfr_sens(card):
     import torch
 
     from tpusysbio_torch import SolverConfig
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
 
     t0 = time.perf_counter()
@@ -1255,11 +1279,11 @@ def phase_egfr_sens(card):
         torch.cuda.synchronize()
         return ev
 
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     ev = run()
     first_s = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     by_n = gj_shape_counts("gj_inverse_f32")
     status = ev.status.cpu().numpy().reshape(-1)
     n_ok = int((status == 1).sum())
@@ -1336,7 +1360,6 @@ def phase_egfr_fit(card, problem):
 
     from tpusysbio_torch import FitConfig
     from tpusysbio_torch.fit import latin_hypercube, make_multistart_runner
-    from tpusysbio_torch.linalg import gpu_lu
 
     proj, theta_true = problem[0], problem[1]
     starts = latin_hypercube(torch.Generator().manual_seed(0), EGFR_BATCH,
@@ -1345,12 +1368,12 @@ def phase_egfr_fit(card, problem):
         proj.residuals, proj.residuals_and_jacobian,
         FitConfig(max_iter=EGFR_FIT_ITERS, eval_mode="lockstep"),
         iter_chunk=EGFR_ITER_CHUNK)
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     out = run(starts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     by_n = gj_shape_counts("gj_inverse_f32")
     check_schur_launches("egfr-fit", launches, by_n, "gj_inverse_f32",
                          "gj_inverse_major_f32")
@@ -1383,21 +1406,19 @@ def phase_egfr_major(problem):
     place at both block shapes and gives the same bits."""
     import torch
 
-    from tpusysbio_torch.linalg import gpu_lu
-
     proj, _, thetas, ev64 = problem
     sub = thetas[:EGFR_MAJOR_BATCH]
 
     def one(layout):
         with gj_layout(layout):
-            gpu_lu.reset_launches()
+            reset_counters()
             t0 = time.perf_counter()
             ev = proj.evaluate(sub, with_jac=True)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             name = ("gj_inverse_major_f32" if layout == "major"
                     else "gj_inverse_f32")
-            return ev, dict(gpu_lu.LAUNCHES), gj_shape_counts(name), secs
+            return ev, kernel_launches(), gj_shape_counts(name), secs
 
     minor, l_minor, n_minor, s_minor = one("minor")
     major, l_major, n_major, s_major = one("major")
@@ -1662,15 +1683,14 @@ def phase_cli(name, card, tmpdir, depth, blocks=None):
     from tpusysbio_torch import cli
     from tpusysbio_torch.config import load_config
     from tpusysbio_torch.fit import make_multistart_runner
-    from tpusysbio_torch.linalg import gpu_lu
 
     path = config_path(name, tmpdir, depth)
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     out = cli.main(["multistart", "--config", path])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     by_n = gj_shape_counts("gj_inverse_f32")
     rec = out["record"]
     _, sizes, with_k2 = CLI_MODELS[name]
@@ -1806,16 +1826,15 @@ def phase_jakstat_ensemble(card, max_iter):
     import torch
 
     from tpusysbio_torch import cli
-    from tpusysbio_torch.linalg import gpu_lu
 
     depth = [] if max_iter is None else ["--max-iter", str(max_iter)]
     runs = []
     for _ in range(2):
-        gpu_lu.reset_launches()
+        reset_counters()
         t0 = time.perf_counter()
         out = cli.main(["fit", "--example", "jakstat"] + depth)
         torch.cuda.synchronize()
-        runs.append((out, time.perf_counter() - t0, dict(gpu_lu.LAUNCHES)))
+        runs.append((out, time.perf_counter() - t0, kernel_launches()))
     (a, wall, launches), (b, wall2, _) = runs
     same = {k: bool(np.array_equal(a[k], b[k]))
             for k in ("scale", "theta", "cost")}
@@ -1848,16 +1867,15 @@ def phase_profile_mm3(card, fit_iters):
     import torch
 
     from tpusysbio_torch import cli
-    from tpusysbio_torch.linalg import gpu_lu
 
     depth = [] if fit_iters is None else ["--fit-iters", str(fit_iters)]
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     out = cli.main(["profile", "--model", "mm3", "--n-points", "3",
                     "--span", "0.5"] + depth)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     costs, ci = out["costs"], out["ci"]
     ref = np.asarray(JAX_PROFILE_MM3_CI)
     center = costs[:, costs.shape[1] // 2]
@@ -1928,7 +1946,6 @@ def phase_pulse(card, max_iter):
 
     from tpusysbio_torch import examples
     from tpusysbio_torch.fit import latin_hypercube
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
 
     t0 = time.perf_counter()
@@ -1961,12 +1978,12 @@ def phase_pulse(card, max_iter):
     theta_true = torch.as_tensor(out["theta_true"], device="cuda")
     thetas = latin_hypercube(torch.Generator().manual_seed(0), PULSE_BATCH,
                              theta_true - 0.5, theta_true + 0.5)
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     ev = pallas.evaluate(thetas, with_jac=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     status = ev.status.cpu().numpy()
     nsteps = ev.nsteps.cpu().numpy()
     print(f"[pulse] N={PULSE_BATCH} evaluations with Jacobian (3 segments, "
@@ -2045,7 +2062,6 @@ def phase_preeq(card):
     from tpusysbio_torch.data import (Experiment, ExperimentBatch,
                                       Measurement)
     from tpusysbio_torch.fit import latin_hypercube
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.project import ParameterMap, Project
 
     p_true = np.array([2.0, 0.5, 1.0, 0.25])
@@ -2072,7 +2088,7 @@ def phase_preeq(card):
                        config=SolverConfig(rtol=rtol, atol=atol,
                                            linear_solver="pallas"))
 
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     tight = project(1e-9, 1e-12).evaluate(theta_true[None])
     thetas = latin_hypercube(torch.Generator().manual_seed(0), PREEQ_BATCH,
@@ -2082,7 +2098,7 @@ def phase_preeq(card):
     ev = proj.evaluate(thetas, with_jac=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     r_truth = float(tight.residuals.abs().max())
     status = ev.status.cpu().numpy()
     print(f"[preeq] {card}: at rtol=1e-9 max |residual| at the true "
@@ -2135,7 +2151,6 @@ def phase_egfr_10k(card, n_starts=10000):
 
     from tpusysbio_torch import FitConfig, SolverConfig
     from tpusysbio_torch.fit import TwoPhaseDriver, latin_hypercube
-    from tpusysbio_torch.linalg import gpu_lu
 
     proj_tight, theta_true = build_egfr_problem("cuda")
     proj_screen = dataclasses.replace(proj_tight, config=SolverConfig(
@@ -2152,12 +2167,12 @@ def phase_egfr_10k(card, n_starts=10000):
         polish_iter_chunk=2, chunk_size=chunk, screen_channels="rank",
         run_tag="egfr10k")
     warm = driver.warmup(theta_true)
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     polish, screen, info = driver.run(starts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     by_n = gj_shape_counts("gj_inverse_f32")
     best = float(polish.ranked().cost[0])
     cost_true = float(proj_tight.cost(theta_true))
@@ -2216,19 +2231,19 @@ def phase_fit_trf(card, problem, fit_top, iters):
     cost_true = float(tight.cost(theta_true))
     runs = {"normal/linear": dict(), "svd/soft_l1": dict(
         subproblem="svd", loss="soft_l1")}
-    launches = dict.fromkeys(gpu_lu.LAUNCHES, 0)
+    launches = dict.fromkeys(gpu_lu.KERNELS, 0)
     results = {}
     for tag, kw in runs.items():
         x0 = top if not kw else top[:FIT_TRF_ROBUST]
-        gpu_lu.reset_launches()
+        reset_counters()
         t0 = time.perf_counter()
         res = multistart_trf(tight.residuals, tight.residuals_and_jacobian,
                              x0, lb, ub, cfg, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        for k, v in gpu_lu.LAUNCHES.items():
+        for k, v in kernel_launches().items():
             launches[k] += v
-        l_run = dict(gpu_lu.LAUNCHES)
+        l_run = kernel_launches()
         results[tag] = res
         th, cost = res.theta.cpu(), res.cost.cpu().numpy()
         status = res.status.cpu().numpy()
@@ -2293,16 +2308,15 @@ def phase_sample_mm3(card, steps, burn, fit_iters):
     import torch
 
     from tpusysbio_torch import cli
-    from tpusysbio_torch.linalg import gpu_lu
 
     argv = ["sample", "--model", "mm3", "--steps", str(steps), "--burn",
             str(burn), "--fit-iters", str(fit_iters)]
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     out = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     t0 = time.perf_counter()
     on_cpu = cli.main(["--cpu"] + argv)
     wall_cpu = time.perf_counter() - t0
@@ -2378,18 +2392,17 @@ def phase_bench(card, main_nsteps):
     import torch
 
     from tpusysbio_torch import cli
-    from tpusysbio_torch.linalg import gpu_lu
 
     knobs = sorted(k for k in os.environ if k.startswith("TPUSYSBIO_BENCH_"))
     check(not knobs, f"bench: the environment sets {knobs}")
     buf = io.StringIO()
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         out = cli.main(["bench"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     line = buf.getvalue().strip().splitlines()[-1]
     rec = json.loads(line)
     print(f"[bench] {card}\n{line}", flush=True)
@@ -2420,7 +2433,6 @@ def phase_chunked_overlap(card, problem):
     same costs. The screen runs ``CHUNKED_SCREEN_ITERS`` LM iterations."""
     from tpusysbio_torch.fit import run_chunked
     from tpusysbio_torch.fit.multistart import _RANK_KEYS
-    from tpusysbio_torch.linalg import gpu_lu
 
     tight, screen, _, starts = problem
     fit = two_phase(tight, screen, FIT_TOP_K, CHUNKED_SCREEN_ITERS, 1)
@@ -2436,9 +2448,9 @@ def phase_chunked_overlap(card, problem):
                 overlap=overlap, as_numpy=True)
             return res, resumed, time.perf_counter() - t0
 
-        gpu_lu.reset_launches()
+        reset_counters()
         over, r_over, w_over = run(True, "overlap.npz")
-        launches = dict(gpu_lu.LAUNCHES)
+        launches = kernel_launches()
         serial, r_serial, w_serial = run(False, "serial.npz")
         again, r_again, w_again = run(True, "overlap.npz")
         a = np.load(os.path.join(tmp, "overlap.npz"))
@@ -2481,7 +2493,6 @@ def phase_mcmc_log_prob_v(card, sample_out):
     import torch
 
     from tpusysbio_torch.fit import ensemble_sample
-    from tpusysbio_torch.linalg import gpu_lu
 
     proj = sample_out["project"]
     x0 = torch.as_tensor(sample_out["x0"][:MCMC_WALKERS], device="cuda")
@@ -2499,13 +2510,13 @@ def phase_mcmc_log_prob_v(card, sample_out):
     def never(th):
         fail("mcmc-log-prob-v: log_prob_fn called beside log_prob_v")
 
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     over = ensemble_sample(never, x0, MCMC_SWEEPS,
                            torch.Generator().manual_seed(0), log_prob_v=lpv)
     torch.cuda.synchronize()
     w_over = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     t0 = time.perf_counter()
     plain = ensemble_sample(two_blocks, x0, MCMC_SWEEPS,
                             torch.Generator().manual_seed(0))
@@ -2591,9 +2602,8 @@ def spread(p_true, batch, seed=0, scale=0.1):
 
 
 def launches_now():
-    from tpusysbio_torch.linalg import gpu_lu
 
-    return dict(gpu_lu.LAUNCHES), dict(gpu_lu.LAUNCHES_BY_N)
+    return kernel_launches(), launches_by_size()
 
 
 def check_k1_k2(tag, launches, need_k2=True):
@@ -2612,7 +2622,6 @@ def phase_radau_mapk22(card):
     import torch
 
     from tpusysbio_torch import SolverConfig
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
 
     model = library.mapk_huang_ferrell(device="cuda")
@@ -2620,7 +2629,7 @@ def phase_radau_mapk22(card):
                 RADAU_BATCH)
     cfg = SolverConfig(rtol=1e-6, atol=1e-9, max_steps=2048,
                        linear_solver="pallas", sens_precision="f32")
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     res = model.simulate_sensitivities(ps, (0.0, 100.0), RADAU_T,
                                        solver="radau", config=cfg,
@@ -2682,7 +2691,6 @@ def phase_rosenbrock_fit(card, problem):
     import torch
 
     from tpusysbio_torch import SolverConfig
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
 
     tight, _, _, starts = problem
@@ -2690,7 +2698,7 @@ def phase_rosenbrock_fit(card, problem):
         tight, solver="rosenbrock",
         config=SolverConfig(rtol=1e-3, atol=1e-6, max_steps=512,
                             linear_solver="pallas"))
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     ev = proj.evaluate(starts, with_jac=True)
     torch.cuda.synchronize()
@@ -2726,7 +2734,6 @@ def phase_auto_mapk22(card):
     import torch
 
     from tpusysbio_torch import SolverConfig
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
     from tpusysbio_torch.solvers import auto_solve
 
@@ -2736,7 +2743,7 @@ def phase_auto_mapk22(card):
     p = torch.as_tensor(ps, device="cuda")
     cfg = SolverConfig(rtol=1e-6, atol=1e-9, max_steps=2048,
                        linear_solver="pallas")
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     res = auto_solve(lambda t, y: model.rhs(t, y, p), tuple(g["t_span"]),
                      model.y0(p), torch.as_tensor(g["t_eval"],
@@ -2781,13 +2788,12 @@ def phase_explicit(card):
     import torch
 
     from tpusysbio_torch import SolverConfig
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
 
     cfg = SolverConfig(rtol=1e-6, atol=1e-9, max_steps=16384)
     counters = ("status", "nsteps", "naccepted", "nrejected", "nfev")
     walls = {}
-    gpu_lu.reset_launches()
+    reset_counters()
     for name, (build, _) in EXPLICIT_MODELS.items():
         p_true = getattr(library, {"lotka": "LV_TRUE_PARAMS",
                                    "repressilator":
@@ -2856,7 +2862,7 @@ def phase_multishoot(card, t_end=MS_T_END, windows=MS_WINDOWS,
     import torch
 
     from tpusysbio_torch import SolverConfig
-    from tpusysbio_torch.linalg import gpu_lu, lu
+    from tpusysbio_torch.linalg import lu
     from tpusysbio_torch.model import library
     from tpusysbio_torch.solvers import bdf_solve
     from tpusysbio_torch.solvers.multishoot import (ShootingProblem,
@@ -2878,7 +2884,7 @@ def phase_multishoot(card, t_end=MS_T_END, windows=MS_WINDOWS,
                              rtol=1e-6, atol=1e-9,
                              max_steps=cfg.max_steps // windows * 4,
                              linear_solver="pallas"))
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     zt = sp.init_z(p)[1:]
     trace = []
@@ -2962,7 +2968,6 @@ def phase_events_mapk22(card):
     import torch
 
     from tpusysbio_torch import SolverConfig
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
     from tpusysbio_torch.solvers import OdeSolution
 
@@ -2976,7 +2981,7 @@ def phase_events_mapk22(card):
                      torch.as_tensor(c_term, device="cuda"))
     cfg = SolverConfig(rtol=1e-8, atol=1e-11, max_steps=4096,
                        linear_solver="pallas")
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     res = model.simulate(ps, (0.0, 100.0), EVENTS_T, config=cfg, events=ev,
                          dense_output=True, device="cuda")
@@ -3038,7 +3043,7 @@ def phase_events_mapk22(card):
 
     # dense output: OdeSolution at the grid and off it
     t_eval = np.linspace(0.0, 100.0, 41)
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     dres = model.simulate_sensitivities(ps[:DENSE_BATCH], (0.0, 100.0),
                                         t_eval, config=cfg,
@@ -3513,7 +3518,6 @@ def phase_sbml(card):
     from tpusysbio_torch import SolverConfig
     from tpusysbio_torch.data import (Experiment, ExperimentBatch,
                                       Measurement)
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model import library
     from tpusysbio_torch.model.sbml_export import to_sbml
     from tpusysbio_torch.model.sbml_import import from_sbml
@@ -3528,7 +3532,7 @@ def phase_sbml(card):
     ps = spread(library.REPRESSILATOR_TRUE_PARAMS, SBML_BATCH)
     cfg = SolverConfig(rtol=1e-6, atol=1e-9, linear_solver="pallas")
     runs, walls = {}, {}
-    gpu_lu.reset_launches()
+    reset_counters()
     for tag, m in (("sbml", model), ("library", lib)):
         t0 = time.perf_counter()
         runs[tag] = m.simulate(ps, (0.0, float(SBML_T[-1])), SBML_T,
@@ -3536,7 +3540,7 @@ def phase_sbml(card):
         torch.cuda.synchronize()
         walls[tag] = time.perf_counter() - t0
         if tag == "sbml":
-            launches = dict(gpu_lu.LAUNCHES)
+            launches = kernel_launches()
     a, b = runs["sbml"], runs["library"]
     check(a.status.tolist() == [1] * SBML_BATCH
           and b.status.tolist() == [1] * SBML_BATCH,
@@ -3727,7 +3731,6 @@ def phase_petab_mapk22(card, problem):
     from tpusysbio_torch import FitConfig
     from tpusysbio_torch.data import ExperimentBatch, experiments_from_csv
     from tpusysbio_torch.fit import multistart_trf
-    from tpusysbio_torch.linalg import gpu_lu
     from tpusysbio_torch.model.sbml_import import from_sbml
     from tpusysbio_torch.petab_import import from_petab
     from tpusysbio_torch.project import ParameterMap, Project
@@ -3775,9 +3778,9 @@ def phase_petab_mapk22(card, problem):
     screen = dataclasses.replace(prob.project, config=screen_config())
     starts = prob.sample_startpoints(torch.Generator().manual_seed(0),
                                      PETAB_STARTS)
-    gpu_lu.reset_launches()
+    reset_counters()
     ev = screen.evaluate(starts, with_jac=True)
-    l_screen = dict(gpu_lu.LAUNCHES)
+    l_screen = kernel_launches()
     native_ev = screen_native.evaluate(starts, with_jac=True)
     s_cost = ev.cost.cpu().numpy()
     n_bad = int((~np.isfinite(s_cost)).sum())
@@ -3795,14 +3798,14 @@ def phase_petab_mapk22(card, problem):
                        kind="stable")[:PETAB_TOP_K]
     x0 = starts[order.tolist()]
     c_start = prob.project.cost(x0)
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     res = multistart_trf(prob.project.residuals,
                          prob.project.residuals_and_jacobian, x0, lb, ub,
                          FitConfig(max_iter=PETAB_TRF_ITERS))
     torch.cuda.synchronize()
     trf_s = time.perf_counter() - t0
-    l_trf = dict(gpu_lu.LAUNCHES)
+    l_trf = kernel_launches()
     launches = {k: l_screen[k] + l_trf[k] for k in l_trf}
     inside = bool(((res.theta > lb) & (res.theta < ub)).all())
     best0, best = float(c_start.min()), float(res.cost.min())
@@ -4068,19 +4071,18 @@ def phase_surfaces(card, problem):
     print(f"[surfaces] torch {torch.__version__}, sympy {sympy_version}, "
           f"matplotlib imports: {have_mpl}", flush=True)
     launches, laps = {}, Laps()
-    from tpusysbio_torch.linalg import gpu_lu
 
     launches["sbml"] = phase_sbml(card)
     laps("sbml")
     launches["petab-mapk22"], petab_timed = phase_petab_mapk22(card, problem)
     laps("petab-mapk22")
-    gpu_lu.reset_launches()
+    reset_counters()
     phase_compat(card)
-    launches["compat"] = dict(gpu_lu.LAUNCHES)
+    launches["compat"] = kernel_launches()
     laps("compat")
-    gpu_lu.reset_launches()
+    reset_counters()
     phase_plot(card)
-    launches["plot"] = dict(gpu_lu.LAUNCHES)
+    launches["plot"] = kernel_launches()
     laps("plot")
     laps.report("the model and data surfaces")
     return launches, petab_timed
@@ -4400,7 +4402,6 @@ def mesh_fit_rank(mesh, outdir):
 
     from tpusysbio_torch import utils
     from tpusysbio_torch.fit import latin_hypercube
-    from tpusysbio_torch.linalg import gpu_lu
 
     tight, screen, theta_true = build_fit_problem(mesh.device)
     starts = latin_hypercube(torch.Generator().manual_seed(0), FIT_STARTS,
@@ -4411,12 +4412,12 @@ def mesh_fit_rank(mesh, outdir):
           "mesh-fit: the ranks built different starts")
     fit = two_phase(tight, screen, FIT_TOP_K, FIT_SCREEN_ITERS,
                     FIT_POLISH_ITERS, mesh=mesh)
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     polish, scr, info = fit.run(starts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(gpu_lu.LAUNCHES)
+    launches = kernel_launches()
     ranked = polish.ranked()
     np.savez(os.path.join(outdir, f"rank{mesh.rank}.npz"),
              screen_status=scr.status.cpu().numpy(),
@@ -4441,9 +4442,8 @@ def cli_mesh_rank(path, outdir, rank):
     import torch
 
     from tpusysbio_torch import cli, utils
-    from tpusysbio_torch.linalg import gpu_lu
 
-    gpu_lu.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     out = cli.main(["multistart", "--config", path])
     torch.cuda.synchronize()
@@ -4453,7 +4453,7 @@ def cli_mesh_rank(path, outdir, rank):
     # the group before returning)
     backend = utils.default_backend(torch.cuda.device_count(),
                                     int(os.environ["LOCAL_WORLD_SIZE"]))
-    return {"launches": dict(gpu_lu.LAUNCHES),
+    return {"launches": kernel_launches(),
             "wall": time.perf_counter() - t0,
             "best_cost": out["record"]["best_cost"],
             "cost_at_truth": out["cost_at_truth"], "backend": backend}
@@ -4645,9 +4645,9 @@ def main():
     # with no second process: the banded path and its timings, the
     # imported model's evaluation beside the native one, and the kernel
     # timings at n = 2-6 and n = 44
-    gpu_lu.reset_launches()
+    reset_counters()
     phase_banded(card)
-    l_small["banded"] = dict(gpu_lu.LAUNCHES)
+    l_small["banded"] = kernel_launches()
     laps("banded")
     petab_timed()
     laps("petab-mapk22 timed")

@@ -273,6 +273,34 @@ def test_cli_profile_flag_writes_a_trace(tmp_path, capsys):
         assert "traceEvents" in json.load(fh)
 
 
+def test_cli_profile_flag_writes_the_program_spans(tmp_path, capsys):
+    """``--profile DIR`` also writes the port's spans to DIR/spans.json as
+    Chrome trace events on the profiler trace's time axis: each trip of
+    the stepper lies inside its ``bdf.solve`` and holds the profiler's
+    operations issued during it."""
+    cli.main(["--cpu", "simulate", "--model", "mm3", "--t-end", "0.5",
+              "--n-times", "2", "--profile", str(tmp_path / "trace")])
+    capsys.readouterr()
+    with open(tmp_path / "trace" / "spans.json") as fh:
+        spans = json.load(fh)
+    with open(tmp_path / "trace" / "trace.json") as fh:
+        prof = json.load(fh)
+    assert spans["baseTimeNanoseconds"] == prof["baseTimeNanoseconds"]
+    events = spans["traceEvents"]
+    assert {e["ph"] for e in events} == {"X"}
+    names = [e["name"] for e in events]
+    assert names.count("bdf.solve") == 1 and "bdf.trip" in names
+    solve = events[names.index("bdf.solve")]
+    ops = [float(e["ts"]) for e in prof["traceEvents"]
+           if e.get("ph") == "X" and e["name"].startswith("aten::")]
+    for e in events:
+        assert e["dur"] >= 0
+        assert solve["ts"] <= e["ts"] <= e["ts"] + e["dur"] <= (
+            solve["ts"] + solve["dur"]) or e is solve
+    for trip in (e for e in events if e["name"] == "bdf.trip"):
+        assert any(trip["ts"] <= t <= trip["ts"] + trip["dur"] for t in ops)
+
+
 def test_cli_multistart_pipeline(tmp_path, capsys):
     """tests/test_cli.py's tiny multistart, without ``--plot``."""
     out = str(tmp_path / "fits.npz")

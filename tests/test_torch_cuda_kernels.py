@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpusysbio_torch import trace
 from tpusysbio_torch.linalg import gpu_lu
 
 
@@ -23,6 +24,12 @@ def cuda_device():
 
 def _newton_like(rng, B, n, scale=0.08):
     return np.eye(n)[None] - scale * rng.standard_normal((B, n, n))
+
+
+def _launches():
+    """Launches counted by kernel, as ``trace.counters()`` holds them."""
+    counts = trace.counters()
+    return {k: counts.get("gpu_lu." + k, 0) for k in gpu_lu.KERNELS}
 
 
 def _gj(monkeypatch, layout, a):
@@ -53,10 +60,10 @@ def test_gj_kernel_matches_plain(cuda_device, monkeypatch, B, n):
     rng = np.random.default_rng(n)
     a = torch.as_tensor(_newton_like(rng, B, n), dtype=torch.float32,
                         device=cuda_device)
-    before = gpu_lu.LAUNCHES["gj_inverse_f32"]
+    before = _launches()["gj_inverse_f32"]
     got = _gj(monkeypatch, "minor", a)
     torch.cuda.synchronize()
-    assert gpu_lu.LAUNCHES["gj_inverse_f32"] == before + 1
+    assert _launches()["gj_inverse_f32"] == before + 1
     ref = gpu_lu.gj_inverse_f32_plain(a)
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-4
 
@@ -82,12 +89,12 @@ def test_gj_major_kernel_matches_plain_and_k1(cuda_device, monkeypatch, B,
     rng = np.random.default_rng(100 + n)
     a = torch.as_tensor(_newton_like(rng, B, n), dtype=torch.float32,
                         device=cuda_device)
-    before = dict(gpu_lu.LAUNCHES)
+    before = _launches()
     got = _gj(monkeypatch, "major", a)
     torch.cuda.synchronize()
-    assert gpu_lu.LAUNCHES["gj_inverse_major_f32"] == (
+    assert _launches()["gj_inverse_major_f32"] == (
         before["gj_inverse_major_f32"] + 1)
-    assert gpu_lu.LAUNCHES["gj_inverse_f32"] == before["gj_inverse_f32"]
+    assert _launches()["gj_inverse_f32"] == before["gj_inverse_f32"]
     ref = gpu_lu.gj_inverse_major_f32_plain(a)
     assert float((got - ref).abs().max()) <= 1e-5
     k1 = _gj(monkeypatch, "minor", a)
@@ -201,10 +208,12 @@ def test_gj_launches_are_counted_by_size(cuda_device, monkeypatch):
     for layout, name in (("minor", "gj_inverse_f32"),
                          ("major", "gj_inverse_major_f32")):
         monkeypatch.setattr(gpu_lu, "_LAYOUT", layout)
-        gpu_lu.reset_launches()
+        trace.reset()
         x = gpu_lu.inverse(a)
-        assert gpu_lu.LAUNCHES[name] == 2
-        assert gpu_lu.LAUNCHES_BY_N == {(name, 64): 1, (name, 35): 1}
+        assert _launches()[name] == 2
+        assert {k: v for k, v in trace.counters().items()
+                if k.startswith(f"gpu_lu.{name}.n")} == {
+            f"gpu_lu.{name}.n64": 1, f"gpu_lu.{name}.n35": 1}
         eye = torch.eye(99, dtype=a.dtype, device=cuda_device)
         assert float((x @ a - eye).abs().max()) < 1e-11
 
@@ -213,11 +222,11 @@ def test_gj_launches_are_counted_by_size(cuda_device, monkeypatch):
 def test_layout_switch_selects_the_kernel(cuda_device, monkeypatch):
     a = torch.eye(4, device=cuda_device).repeat(3, 1, 1)
     monkeypatch.setattr(gpu_lu, "_LAYOUT", "major")
-    before = dict(gpu_lu.LAUNCHES)
+    before = _launches()
     gpu_lu.inverse(a.double())
-    assert gpu_lu.LAUNCHES["gj_inverse_major_f32"] == (
+    assert _launches()["gj_inverse_major_f32"] == (
         before["gj_inverse_major_f32"] + 1)
-    assert gpu_lu.LAUNCHES["gj_inverse_f32"] == before["gj_inverse_f32"]
+    assert _launches()["gj_inverse_f32"] == before["gj_inverse_f32"]
 
 
 @pytest.mark.cuda
@@ -228,10 +237,10 @@ def test_refine_kernel_matches_plain(cuda_device, n, B):
     a = torch.as_tensor(_newton_like(rng, B, n), device=cuda_device)
     b = torch.as_tensor(rng.standard_normal((B, n)), device=cuda_device)
     x32 = gpu_lu.inverse(a.to(torch.float32))
-    before = gpu_lu.LAUNCHES["refine_solve"]
+    before = _launches()["refine_solve"]
     got = gpu_lu.refine_solve(x32, a, b)
     torch.cuda.synchronize()
-    assert gpu_lu.LAUNCHES["refine_solve"] == before + 1
+    assert _launches()["refine_solve"] == before + 1
     ref = gpu_lu.refine_solve_plain(x32, a, b)
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
     lib = torch.linalg.solve(a, b)
@@ -263,10 +272,10 @@ def test_wrappers_reject_bad_inputs(cuda_device, monkeypatch):
         gpu_lu.refine_solve(a, a.double().transpose(1, 2), b)
     with pytest.raises(ValueError):
         gpu_lu.refine_solve(a, a.double(), b.as_strided((2, 4), (1, 2)))
-    before = dict(gpu_lu.LAUNCHES)
+    before = _launches()
     gpu_lu.refine_solve(a, a.double(), b)
     torch.cuda.synchronize()
-    assert gpu_lu.LAUNCHES["refine_solve"] == before["refine_solve"] + 1
+    assert _launches()["refine_solve"] == before["refine_solve"] + 1
 
 
 # --------------------------------------------------------------------------

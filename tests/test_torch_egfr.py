@@ -26,7 +26,7 @@ from tpusysbio import project as jproject
 from tpusysbio import solvers as jsolvers
 from tpusysbio.config import SolverConfig as JSolverConfig
 from tpusysbio.model import library as jlibrary
-from tpusysbio_torch import SolverConfig, convert
+from tpusysbio_torch import SolverConfig, convert, trace
 from tpusysbio_torch.data import Experiment, ExperimentBatch, Measurement
 from tpusysbio_torch.linalg import gpu_lu
 from tpusysbio_torch.model import library
@@ -211,9 +211,9 @@ def direction_run(request):
     p, C = _direction_problem(n_layers, 2)
     t_eval = np.linspace(t_end / n_t, t_end, n_t)
     span = (0.0, t_end)
-    gpu_lu.reset_launches()
+    trace.reset()
     got = _port_directions(n_layers, p, C, span, t_eval)
-    assert set(gpu_lu.LAUNCHES.values()) == {0}
+    assert not any(k.startswith("gpu_lu.") for k in trace.counters())
     return n_layers, got, _reference_directions(n_layers, p, C, span, t_eval)
 
 

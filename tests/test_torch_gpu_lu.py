@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tpusysbio.linalg import pallas_lu
+from tpusysbio_torch import trace
 from tpusysbio_torch.linalg import gpu_lu, lu, make_linear_solver
 
 torch.set_num_threads(1)
@@ -22,6 +23,12 @@ torch.set_num_threads(1)
 
 def _newton_like(rng, B, n, scale=0.08):
     return np.eye(n)[None] - scale * rng.standard_normal((B, n, n))
+
+
+def _launched():
+    """The kernel launches counted since the last ``trace.reset()``."""
+    return {k: v for k, v in trace.counters().items()
+            if k.startswith("gpu_lu.")}
 
 
 # --------------------------------------------------------------------------
@@ -64,14 +71,14 @@ def test_layout_switch_on_the_cpu_takes_the_plain_version(monkeypatch,
     a = torch.as_tensor(_newton_like(rng, 5, 22), dtype=torch.float32)
     ref = gpu_lu.gj_inverse_f32_plain(a)
     assert gpu_lu.gj_inverse_major_f32_plain is gpu_lu.gj_inverse_f32_plain
-    gpu_lu.reset_launches()
+    trace.reset()
     if layout is not None:
         monkeypatch.setattr(gpu_lu, "_LAYOUT", layout)
     got = gpu_lu.gj_inverse_f32(a)
     assert torch.equal(got, ref)
-    assert set(gpu_lu.LAUNCHES) == {"gj_inverse_f32", "refine_solve",
-                                    "gj_inverse_major_f32"}
-    assert set(gpu_lu.LAUNCHES.values()) == {0}
+    assert set(gpu_lu.KERNELS) == {"gj_inverse_f32", "refine_solve",
+                                   "gj_inverse_major_f32"}
+    assert _launched() == {}
 
 
 def test_layout_switch_is_read_from_the_environment():
@@ -533,16 +540,16 @@ ptxas info    : Used 255 registers, used 0 barriers, 376 bytes cmem[0]
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
-    gpu_lu.LAUNCHES_BY_N["gj_inverse_f32", 22] = 3
-    gpu_lu.reset_launches()
+    trace.count("gpu_lu.gj_inverse_f32.n22", 3)
+    trace.reset()
     rng = np.random.default_rng(5)
     a = torch.as_tensor(_newton_like(rng, 2, 6))
     fact = gpu_lu.factor_for_solve(a)
     gpu_lu.solve_refined(fact, torch.as_tensor(rng.standard_normal((2, 6,
                                                                      1))))
-    assert gpu_lu.LAUNCHES == {"gj_inverse_f32": 0, "refine_solve": 0,
-                               "gj_inverse_major_f32": 0}
-    assert gpu_lu.LAUNCHES_BY_N == {}
+    assert all(trace.counters().get("gpu_lu." + k, 0) == 0
+               for k in gpu_lu.KERNELS)
+    assert not [k for k in _launched() if ".n" in k]
 
 
 # --------------------------------------------------------------------------

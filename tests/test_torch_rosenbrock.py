@@ -20,8 +20,7 @@ from tpusysbio import solvers as jsolvers
 from tpusysbio.config import SolverConfig as JSolverConfig
 from tpusysbio.model import library as jlibrary
 from tpusysbio.sens import make_sens_rhs as jmake_sens_rhs
-from tpusysbio_torch import SolverConfig
-from tpusysbio_torch.linalg import gpu_lu
+from tpusysbio_torch import SolverConfig, trace
 from tpusysbio_torch.model import library
 from tpusysbio_torch.sens import make_sens_rhs
 from tpusysbio_torch.solvers import STATUS_DONE, rosenbrock_solve
@@ -108,11 +107,12 @@ def test_mapk22_pallas_matches_reference():
             jac=lambda t, y: jm.rhs_jac(t, y, p.astype(y.dtype)))
 
     ref = jax.tree.map(np.asarray, jax.jit(jax.vmap(one))(jnp.asarray(ps)))
-    gpu_lu.reset_launches()
+    trace.reset()
     got = library.mapk_huang_ferrell(device="cpu").simulate_sensitivities(
         ps, (0.0, 5.0), t_eval, solver="rosenbrock",
         config=SolverConfig(**kw), device="cpu")
-    assert sum(gpu_lu.LAUNCHES.values()) == 0
+    assert sum(v for k, v in trace.counters().items()
+               if k.startswith("gpu_lu.")) == 0
     _assert_counters_equal(got, ref)
     assert _rel(got.ys.numpy(), ref.ys) <= 1e-9
     assert _rel(got.sens.numpy(), ref.sens) <= 1e-9

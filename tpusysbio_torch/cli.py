@@ -19,7 +19,11 @@ Differences from the reference:
 - the multi-start starts come from ``fit.latin_hypercube`` with a
   ``torch.Generator`` seeded by ``--seed``, so they differ from the JAX
   CLI's ``PRNGKey`` stream (so do the ``fit --example jakstat`` starts);
-- ``--profile DIR`` writes a ``torch.profiler`` trace, ``DIR/trace.json``;
+- ``--profile DIR`` writes a ``torch.profiler`` trace, ``DIR/trace.json``,
+  and the port's own spans (``tpusysbio_torch/trace.py``: the stepper's
+  trips by phase, its host reads, ``Project``'s evaluations, LM's
+  iterations) as Chrome trace events, ``DIR/spans.json``, on the same time
+  axis: open both in Perfetto to see which phase issued each operation;
 - ``fit --max-iter N`` caps the example's LM iterations per start (by
   default the example's own, the reference's fixed number);
 - a config's ``mesh:`` section spans the ranks of a ``torchrun`` launch
@@ -46,6 +50,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import sys
 import time
 
@@ -104,9 +109,12 @@ def _maybe_profile(trace_dir, device):
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from tpusysbio_torch import trace
+
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    first = len(trace.spans())
     with profile(activities=acts) as prof:
         yield
         _sync(device)
@@ -114,6 +122,26 @@ def _maybe_profile(trace_dir, device):
     path = os.path.join(trace_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"torch.profiler trace written to {path}", file=sys.stderr)
+    _write_spans(os.path.join(trace_dir, "spans.json"), path, first)
+
+
+def _write_spans(path, profile_path, first):
+    """The port's spans from span ``first`` on as Chrome trace events, on
+    the time axis of the profiler's trace at ``profile_path`` (its
+    ``baseTimeNanoseconds``, which the profiler writes near the top of
+    the file)."""
+    from tpusysbio_torch import trace
+
+    with open(profile_path, "rb") as fh:
+        head = fh.read(65536).decode("utf-8", "replace")
+    found = re.search(r'"baseTimeNanoseconds":\s*(\d+)', head)
+    base = int(found.group(1)) if found else 0
+    with open(path, "w") as fh:
+        json.dump({"traceEvents": trace.chrome_events(trace.spans(), base,
+                                                      first),
+                   "baseTimeNanoseconds": base,
+                   "displayTimeUnit": "ms"}, fh)
+    print(f"program spans written to {path}", file=sys.stderr)
 
 
 def _report(res):

@@ -18,12 +18,15 @@ kernels (``linalg/csrc/``) replace its three TPU kernels:
 
 Each wrapper has a plain PyTorch twin of the same function. The wrapper
 takes the twin only when its input lies on the CPU; on a CUDA tensor it
-launches the kernel or raises, and adds one to ``LAUNCHES[name]`` per
-launch. Around the kernels sit the reference's host-side pieces:
-``inverse`` with its size dispatch (the kernel for n <= 64, one level of
-block-Schur elimination with the NaN-poison guard for 64 < n <= 128, the
-f32-LU fallback beyond), the Newton-Schulz refinement, and the lazy
-factorization ``factor_for_solve`` / ``solve_refined`` of the f64 path.
+launches the kernel or raises, and counts each launch in
+``trace.counters()`` as ``gpu_lu.<name>`` (the Gauss-Jordan kernels also
+as ``gpu_lu.<name>.n<n>``, by matrix size: block-Schur elimination gives
+the kernel two sizes per factorization). Around the kernels sit the
+reference's host-side pieces: ``inverse`` with its size dispatch (the
+kernel for n <= 64, one level of block-Schur elimination with the
+NaN-poison guard for 64 < n <= 128, the f32-LU fallback beyond), the
+Newton-Schulz refinement, and the lazy factorization
+``factor_for_solve`` / ``solve_refined`` of the f64 path.
 The TPU's 64-wide VMEM limit does not bind on Hopper; the dispatch is kept
 so that results stay comparable with the reference.
 """
@@ -34,29 +37,19 @@ import os
 
 import torch
 
+from tpusysbio_torch import trace
 from tpusysbio_torch.linalg import _build
 
 MAX_KERNEL_N = 64
 _REFINE_MAX_N = 64
 _REFINE_STEPS = 3
 
-# Kernel launches per wrapper; a run resets these to 0 and reads them back
-# to show which kernels it went through.
-LAUNCHES = {"gj_inverse_f32": 0, "refine_solve": 0,
-            "gj_inverse_major_f32": 0}
-# The Gauss-Jordan launches again by (kernel, n): block-Schur elimination
-# gives the kernel two sizes per factorization, and a run can show both.
-LAUNCHES_BY_N = {}
+# The wrappers' kernels, as their launches are counted: ``gpu_lu.<name>``.
+KERNELS = ("gj_inverse_f32", "refine_solve", "gj_inverse_major_f32")
 
 # Which Gauss-Jordan kernel ``gj_inverse_f32`` launches: 'minor' (K1) or
 # 'major' (K3), read once at import as the reference reads it.
 _LAYOUT = os.environ.get("TPUSYSBIO_GJ_LAYOUT", "minor")
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    LAUNCHES_BY_N.clear()
 
 
 def _check_cuda(name, device, *specs):
@@ -144,8 +137,8 @@ def gj_inverse_f32(a: torch.Tensor) -> torch.Tensor:
         a.data_ptr(), out.data_ptr(), B, n, _stream(device))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_N[name, n] = LAUNCHES_BY_N.get((name, n), 0) + 1
+    trace.count("gpu_lu." + name)
+    trace.count(f"gpu_lu.{name}.n{n}")
     return out
 
 
@@ -259,7 +252,7 @@ def refine_solve(x32: torch.Tensor, a: torch.Tensor,
         _stream(device))
     if err != 0:
         raise RuntimeError(f"refine_solve launch failed: cudaError {err}")
-    LAUNCHES["refine_solve"] += 1
+    trace.count("gpu_lu.refine_solve")
     return y
 
 

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from tpusysbio_torch import trace
 from tpusysbio_torch.config import FitConfig
 from tpusysbio_torch.linalg import lu as _lu
 
@@ -96,6 +97,7 @@ def _frozen(new, old, live):
         for a, b in zip(new, old)))
 
 
+@trace.spanned("lm.init")
 def lm_init(residual_and_jac_fn: Callable, theta0: torch.Tensor,
             config: FitConfig = FitConfig()) -> LMState:
     """Evaluate the initial points ``theta0`` (N, G) into an LM state."""
@@ -215,7 +217,7 @@ def lm_run(residual_fn: Callable, residual_and_jac_fn: Callable,
         else:
             # fresh Jacobian only on acceptance: evaluated for the batch
             # when any live member accepts, merged per member
-            if bool((accept & live).any()):
+            if trace.read((accept & live).any(), "lm.reads"):
                 r_f, J_f = residual_and_jac_fn(theta_t)
                 r_new = torch.where(accept[:, None], r_f, st.r)
                 J_new = torch.where(accept[:, None, None], J_f, st.J)
@@ -264,6 +266,7 @@ def lm_run(residual_fn: Callable, residual_and_jac_fn: Callable,
 
     while True:
         live = ~state.done & (state.n_iter < cap)
-        if not bool(live.any()):
+        if not trace.read(live.any(), "lm.reads"):
             return state
-        state = body(state, live)
+        with trace.span("lm.iter"):
+            state = body(state, live)

@@ -50,7 +50,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpusysbio_torch import solvers
+from tpusysbio_torch import solvers, trace
 from tpusysbio_torch.config import SolverConfig
 from tpusysbio_torch.data import ExperimentBatch
 from tpusysbio_torch.model.core import OdeModel
@@ -198,6 +198,7 @@ class Project:
             sens_rhs = make_sens_rhs(model.rhs, p_k)
         return f, jac, sens_rhs
 
+    @trace.spanned("project.observe")
     def _observe(self, y, p, S, dirs):
         """Observables ``g(y, p)`` of (B, k, n) states and, with ``S`` (B,
         k, n, K), their total derivative along the K parameter directions
@@ -223,6 +224,7 @@ class Project:
             s_f, dirs_f).reshape(Bm, k, -1, K)
         return obs, obs_sens
 
+    @trace.spanned("project.steady")
     def _steady(self, p, y0, with_sens: bool):
         return steady_state(
             self.model.rhs, p, y0, config=self.config,
@@ -347,34 +349,38 @@ class Project:
         y_c, s_c = y0, s0
         status = counters = None
         for k in range(smask.shape[1]):
-            t_lo, t_hi = bounds[:, k], bounds[:, k + 1]
-            if sy_mask is not None:
-                y_c = torch.where(sy_mask[:, k], sy_vals[:, k], y_c)
+            with trace.span("project.segment"):
+                t_lo, t_hi = bounds[:, k], bounds[:, k + 1]
+                if sy_mask is not None:
+                    y_c = torch.where(sy_mask[:, k], sy_vals[:, k], y_c)
+                    if with_sens:
+                        s_c = s_c * (~sy_mask[:, k])[:, :, None].to(s_c.dtype)
+                p_k = torch.where(smask[:, k], svals[:, k], p)
+                dirs_k = (~smask[:, k]).to(p.dtype)
+                f, jac, sens_rhs = self._seg_fns(p_k, C, dirs_k, with_sens)
+                res = solve(f, (t_lo, t_hi), y_c, t_eval, config=self.config,
+                            sens_rhs=sens_rhs, s0=s_c, jac=jac)
+                # the stepper fills t_eval points in [t_lo, t_hi] only (t_lo
+                # by the at-t0 prefill); boundary points are written by both
+                # adjoining segments with the SAME carried state
+                filled = ((t_eval >= t_lo[:, None])
+                          & (t_eval <= t_hi[:, None]))
+                ys_tot = torch.where(filled[..., None], res.ys.to(dtype),
+                                     ys_tot)
                 if with_sens:
-                    s_c = s_c * (~sy_mask[:, k])[:, :, None].to(s_c.dtype)
-            p_k = torch.where(smask[:, k], svals[:, k], p)
-            dirs_k = (~smask[:, k]).to(p.dtype)
-            f, jac, sens_rhs = self._seg_fns(p_k, C, dirs_k, with_sens)
-            res = solve(f, (t_lo, t_hi), y_c, t_eval, config=self.config,
-                        sens_rhs=sens_rhs, s0=s_c, jac=jac)
-            # the stepper fills t_eval points in [t_lo, t_hi] only (t_lo by
-            # the at-t0 prefill); boundary points are written by both
-            # adjoining segments with the SAME carried state
-            filled = (t_eval >= t_lo[:, None]) & (t_eval <= t_hi[:, None])
-            ys_tot = torch.where(filled[..., None], res.ys.to(dtype), ys_tot)
-            if with_sens:
-                sens_tot = torch.where(filled[..., None, None],
-                                       res.sens.to(dtype), sens_tot)
-            y_c = res.y_final[..., 0]
-            if with_sens:
-                s_c = res.y_final[..., 1:]
-            # first failure wins
-            status = (res.status if status is None else
-                      torch.where(status == STATUS_DONE, res.status, status))
-            cs = (res.nsteps, res.naccepted, res.nrejected, res.nfev,
-                  res.njev, res.nlu, res.order_hist)
-            counters = cs if counters is None else tuple(
-                a + b for a, b in zip(counters, cs))
+                    sens_tot = torch.where(filled[..., None, None],
+                                           res.sens.to(dtype), sens_tot)
+                y_c = res.y_final[..., 0]
+                if with_sens:
+                    s_c = res.y_final[..., 1:]
+                # first failure wins
+                status = (res.status if status is None else
+                          torch.where(status == STATUS_DONE, res.status,
+                                      status))
+                cs = (res.nsteps, res.naccepted, res.nrejected, res.nfev,
+                      res.njev, res.nlu, res.order_hist)
+                counters = cs if counters is None else tuple(
+                    a + b for a, b in zip(counters, cs))
         return IntegrateResult(
             ys=ys_tot, sens=sens_tot, status=status, nsteps=counters[0],
             naccepted=counters[1], nrejected=counters[2], nfev=counters[3],
@@ -479,6 +485,11 @@ class Project:
         if theta.ndim != 2 or theta.shape[1] != self.n_theta:
             raise ValueError(f"theta must be (N, {self.n_theta}) or "
                              f"({self.n_theta},); got {tuple(theta.shape)}")
+        with trace.span("project.evaluate"):
+            return self._evaluate(theta, with_jac)
+
+    def _evaluate(self, theta, with_jac: bool) -> ProjectEval:
+        b = self.batch
         N = theta.shape[0]
         sim_em, dsim_emg, status, nsteps = self._gathered(theta, with_jac)
         R = b.n_residuals

@@ -58,6 +58,7 @@ from typing import Callable, Optional
 
 import torch
 
+from tpusysbio_torch import trace
 from tpusysbio_torch.config import SolverConfig
 from tpusysbio_torch.linalg import make_linear_solver
 from tpusysbio_torch.solvers import common
@@ -137,6 +138,7 @@ def _wsum(w, D):
 
 
 
+@trace.spanned("bdf.solve")
 def bdf_solve(
     f: Callable,
     t_span,
@@ -368,241 +370,252 @@ def bdf_solve(
         return Dp[:, None, 0] + corr.to(dt)
 
     def body(st):
-        t, order = st["t"], st["order"]
-        orderf = order.to(dtype)
-        h_abs = st["h_abs"]
-        D = st["D"]
-        lu_valid = st["lu_valid"]
-        n_equal_steps = st["n_equal_steps"]
-        last_accepted = st["last_accepted"]
-        running = st["status"] == STATUS_RUNNING
-        if config.debug_checks:
-            bad = torch.nonzero(~(h_abs > 0) & running)
-            if bad.numel():
-                i = int(bad[0, 0])
-                raise FloatingPointError(
-                    f"non-positive step size h={float(h_abs[i])} at "
-                    f"t={float(t[i])}")
+        with trace.span("bdf.predict"):
+            t, order = st["t"], st["order"]
+            orderf = order.to(dtype)
+            h_abs = st["h_abs"]
+            D = st["D"]
+            lu_valid = st["lu_valid"]
+            n_equal_steps = st["n_equal_steps"]
+            last_accepted = st["last_accepted"]
+            running = st["status"] == STATUS_RUNNING
+            if config.debug_checks:
+                bad = torch.nonzero(~(h_abs > 0) & running)
+                if bad.numel():
+                    i = int(bad[0, 0])
+                    raise FloatingPointError(
+                        f"non-positive step size h={float(h_abs[i])} at "
+                        f"t={float(t[i])}")
 
-        # SciPy clamps h into [min_step, max_step] at a fresh step; inside
-        # a retry sequence h < min_step is fatal.
-        min_step = 10 * eps * torch.abs(t)
-        too_small = (h_abs < min_step) & ~last_accepted
-        h_clamped = torch.minimum(torch.maximum(h_abs, min_step), max_step)
-        pre_clamp = last_accepted & (h_clamped != h_abs)
-        pre_factor = torch.where(pre_clamp, h_clamped / h_abs, one)
-        n_equal_steps = torch.where(pre_clamp, 0, n_equal_steps)
-        h_abs = torch.where(last_accepted, h_clamped, h_abs)
+            # SciPy clamps h into [min_step, max_step] at a fresh step; inside
+            # a retry sequence h < min_step is fatal.
+            min_step = 10 * eps * torch.abs(t)
+            too_small = (h_abs < min_step) & ~last_accepted
+            h_clamped = torch.minimum(torch.maximum(h_abs, min_step), max_step)
+            pre_clamp = last_accepted & (h_clamped != h_abs)
+            pre_factor = torch.where(pre_clamp, h_clamped / h_abs, one)
+            n_equal_steps = torch.where(pre_clamp, 0, n_equal_steps)
+            h_abs = torch.where(last_accepted, h_clamped, h_abs)
 
-        # clip the final step to t_bound (with dense_window also to the
-        # (window-1)-th next t_eval point); the clamp and clip rescalings
-        # compose into one change_D
-        if dw:
-            lo_eval = torch.searchsorted(t_eval_c, t[:, None].contiguous(),
-                                         right=True)[:, 0]
-            last = torch.clamp(lo_eval + (dw - 1), max=T - 1)
-            t_cap = torch.where(
-                lo_eval + (dw - 1) < T,
-                torch.gather(t_eval, 1, last[:, None])[:, 0], inf)
-            bound_eff = torch.minimum(t_bound, t_cap)
-        else:
-            bound_eff = t_bound
-        t_new_raw = t + h_abs
-        clipped = t_new_raw > bound_eff
-        t_new = torch.where(clipped, bound_eff, t_new_raw)
-        h = t_new - t
-        clip_factor = torch.where(clipped, h / h_abs, one)
-        rescale = pre_clamp | clipped
-        if bool((rescale & running).any()):
-            f_tot = pre_factor * clip_factor
-            D = tuple(where_members(rescale, _wsum(
-                _padded_transform(f_tot.to(Dp.dtype), order), Dp), Dp)
-                for Dp in D)
-        n_equal_steps = torch.where(clipped, 0, n_equal_steps)
-        lu_valid = lu_valid & ~clipped
-        h_abs = h
+            # clip the final step to t_bound (with dense_window also to the
+            # (window-1)-th next t_eval point); the clamp and clip rescalings
+            # compose into one change_D
+            if dw:
+                lo_eval = torch.searchsorted(t_eval_c, t[:, None].contiguous(),
+                                             right=True)[:, 0]
+                last = torch.clamp(lo_eval + (dw - 1), max=T - 1)
+                t_cap = torch.where(
+                    lo_eval + (dw - 1) < T,
+                    torch.gather(t_eval, 1, last[:, None])[:, 0], inf)
+                bound_eff = torch.minimum(t_bound, t_cap)
+            else:
+                bound_eff = t_bound
+            t_new_raw = t + h_abs
+            clipped = t_new_raw > bound_eff
+            t_new = torch.where(clipped, bound_eff, t_new_raw)
+            h = t_new - t
+            clip_factor = torch.where(clipped, h / h_abs, one)
+            rescale = pre_clamp | clipped
+            if trace.read((rescale & running).any(), "bdf.reads"):
+                f_tot = pre_factor * clip_factor
+                D = tuple(where_members(rescale, _wsum(
+                    _padded_transform(f_tot.to(Dp.dtype), order), Dp), Dp)
+                    for Dp in D)
+            n_equal_steps = torch.where(clipped, 0, n_equal_steps)
+            lu_valid = lu_valid & ~clipped
+            h_abs = h
 
-        # --- prediction ---
-        pred_w = (rows[None, :] <= order[:, None]).to(dtype)
-        y_predict = tuple(_wsum(pred_w, Dp) for Dp in D)
-        alpha_o = alpha[order]
-        psi_w = torch.where((rows[None, :] >= 1)
-                            & (rows[None, :] <= order[:, None]),
-                            gamma_pad[rows][None, :], 0.0 * one)
-        c = h / alpha_o
-        psi = tuple(_wsum(psi_w / alpha_o[:, None], Dp) for Dp in D)
-        scale_state = atol + rtol * torch.abs(y_predict[0][..., 0])
+            # --- prediction ---
+            pred_w = (rows[None, :] <= order[:, None]).to(dtype)
+            y_predict = tuple(_wsum(pred_w, Dp) for Dp in D)
+            alpha_o = alpha[order]
+            psi_w = torch.where((rows[None, :] >= 1)
+                                & (rows[None, :] <= order[:, None]),
+                                gamma_pad[rows][None, :], 0.0 * one)
+            c = h / alpha_o
+            psi = tuple(_wsum(psi_w / alpha_o[:, None], Dp) for Dp in D)
+            scale_state = atol + rtol * torch.abs(y_predict[0][..., 0])
 
         # --- factorization (reused while SciPy would reuse it) ---
-        fact = st["fact"]
-        if bool((running & ~lu_valid).any()):
-            new = factor_c(I_n - c[:, None, None] * st["J"].to(dtype))
-            fact = new if fact is None else where_members(lu_valid, fact, new)
-        nlu = st["nlu"] + (~lu_valid).to(torch.int32)
-        fact32 = _fact32(fact) if split else None
+        with trace.span("bdf.factor"):
+            fact = st["fact"]
+            if trace.read((running & ~lu_valid).any(), "bdf.reads"):
+                new = factor_c(I_n - c[:, None, None] * st["J"].to(dtype))
+                fact = (new if fact is None
+                        else where_members(lu_valid, fact, new))
+            nlu = st["nlu"] + (~lu_valid).to(torch.int32)
+            fact32 = _fact32(fact) if split else None
 
         # --- modified Newton, masked; the batch union of trips ---
-        c_b = tuple(c.to(dt) for _, dt in parts)
-        Y = y_predict
-        d = tuple(torch.zeros_like(yp) for yp in y_predict)
-        dy_norm_old = torch.zeros(B, **kw)
-        n_iter = torch.zeros(B, **i32)
-        converged = torch.zeros(B, dtype=torch.bool, device=dev)
-        failed = ~running   # members not running take no trips
-        it = torch.zeros(B, **i32)
-        while True:
-            go = (it < NEWTON_MAXITER) & ~(converged | failed)
-            if not bool(go.any()):
-                break
-            Fv = faug_b(t_new, Y)
-            nonfinite = ~torch.stack(
-                [torch.isfinite(Fp).reshape(B, -1).all(1) for Fp in Fv]
-            ).all(0)
-            resid = tuple(bcast(cb, Fp) * Fp - pp - dp
-                          for cb, Fp, pp, dp in zip(c_b, Fv, psi, d))
-            if split:
-                dy = (solve_c(fact, resid[0]), solve_fn(fact32, resid[1]))
-            else:
-                dy = (solve_c(fact, resid[0]),)
-            dy_norm = rms_norm(dy[0][..., 0] / scale_state)
-            rate = dy_norm / torch.where(dy_norm_old > 0, dy_norm_old, one)
-            have_rate = it > 0
-            diverged = have_rate & (
-                (rate >= 1.0)
-                | (rate ** (NEWTON_MAXITER - it).to(dtype) / (1.0 - rate)
-                   * dy_norm > newton_tol))
-            ok = go & ~nonfinite & ~diverged
-            Y = tuple(where_members(ok, Yp + dyp, Yp)
-                      for Yp, dyp in zip(Y, dy))
-            d = tuple(where_members(ok, dp + dyp, dp)
-                      for dp, dyp in zip(d, dy))
-            conv_now = ok & ((dy_norm == 0.0)
-                             | (have_rate & (rate / (1.0 - rate) * dy_norm
-                                             < newton_tol)))
-            converged = converged | conv_now
-            failed = failed | (go & (nonfinite | diverged))
-            n_iter = n_iter + go.to(torch.int32)
-            dy_norm_old = torch.where(ok, dy_norm, dy_norm_old)
-            it = it + go.to(torch.int32)
-        Y_new = Y
-        nfev = st["nfev"] + n_iter
+        with trace.span("bdf.newton"):
+            c_b = tuple(c.to(dt) for _, dt in parts)
+            Y = y_predict
+            d = tuple(torch.zeros_like(yp) for yp in y_predict)
+            dy_norm_old = torch.zeros(B, **kw)
+            n_iter = torch.zeros(B, **i32)
+            converged = torch.zeros(B, dtype=torch.bool, device=dev)
+            failed = ~running   # members not running take no trips
+            it = torch.zeros(B, **i32)
+            while True:
+                go = (it < NEWTON_MAXITER) & ~(converged | failed)
+                if not trace.read(go.any(), "bdf.reads"):
+                    break
+                with trace.span("bdf.rhs"):
+                    Fv = faug_b(t_new, Y)
+                nonfinite = ~torch.stack(
+                    [torch.isfinite(Fp).reshape(B, -1).all(1) for Fp in Fv]
+                ).all(0)
+                resid = tuple(bcast(cb, Fp) * Fp - pp - dp
+                              for cb, Fp, pp, dp in zip(c_b, Fv, psi, d))
+                with trace.span("bdf.lsolve"):
+                    if split:
+                        dy = (solve_c(fact, resid[0]),
+                              solve_fn(fact32, resid[1]))
+                    else:
+                        dy = (solve_c(fact, resid[0]),)
+                dy_norm = rms_norm(dy[0][..., 0] / scale_state)
+                rate = dy_norm / torch.where(dy_norm_old > 0, dy_norm_old, one)
+                have_rate = it > 0
+                diverged = have_rate & (
+                    (rate >= 1.0)
+                    | (rate ** (NEWTON_MAXITER - it).to(dtype) / (1.0 - rate)
+                       * dy_norm > newton_tol))
+                ok = go & ~nonfinite & ~diverged
+                Y = tuple(where_members(ok, Yp + dyp, Yp)
+                          for Yp, dyp in zip(Y, dy))
+                d = tuple(where_members(ok, dp + dyp, dp)
+                          for dp, dyp in zip(d, dy))
+                conv_now = ok & ((dy_norm == 0.0)
+                                 | (have_rate & (rate / (1.0 - rate) * dy_norm
+                                                 < newton_tol)))
+                converged = converged | conv_now
+                failed = failed | (go & (nonfinite | diverged))
+                n_iter = n_iter + go.to(torch.int32)
+                dy_norm_old = torch.where(ok, dy_norm, dy_norm_old)
+                it = it + go.to(torch.int32)
+            Y_new = Y
+            nfev = st["nfev"] + n_iter
 
         # --- outcome classification ---
-        # B: Newton failed with a stale J -> refresh J, retry at same h.
-        case_B = ~converged & ~st["current_jac"]
-        # C: Newton failed with fresh J -> halve the step.
-        case_C = ~converged & st["current_jac"]
-        J = st["J"]
-        if bool((case_B & running).any()):
-            J = where_members(case_B, jac_c(t_new, y_predict[0][..., 0]), J)
-        njev = st["njev"] + case_B.to(torch.int32)
+        with trace.span("bdf.jac"):
+            # B: Newton failed with a stale J -> refresh J, retry at same h.
+            case_B = ~converged & ~st["current_jac"]
+            # C: Newton failed with fresh J -> halve the step.
+            case_C = ~converged & st["current_jac"]
+            J = st["J"]
+            if trace.read((case_B & running).any(), "bdf.reads"):
+                J = where_members(case_B,
+                                  jac_c(t_new, y_predict[0][..., 0]), J)
+            njev = st["njev"] + case_B.to(torch.int32)
 
-        safety = (config.safety * (2 * NEWTON_MAXITER + 1)
-                  / (2 * NEWTON_MAXITER + n_iter.to(dtype)))
-        scale_new = atol + rtol * torch.abs(Y_new[0][..., 0])
-        d0, D0 = d[0], D[0]
-        pdt = D0.dtype
-        err = bcast(error_const[order].to(pdt), d0) * d0
-        if config.sens_error_control and m and not split:
-            scale_full = atol + rtol * torch.abs(Y_new[0])
-            error_norm = rms_norm(err / scale_full).to(dtype)
-        else:
-            scale_full = None
-            error_norm = rms_norm(err[..., 0] / scale_new).to(dtype)
-        # NaN compares false and would ACCEPT a garbage step
-        bad_err = ~torch.isfinite(error_norm)
-        error_norm = torch.where(bad_err, 2.0 * one, error_norm)
-        reject = converged & ((error_norm > 1.0) | bad_err)
-        accept = converged & ~reject
+        with trace.span("bdf.control"):
+            safety = (config.safety * (2 * NEWTON_MAXITER + 1)
+                      / (2 * NEWTON_MAXITER + n_iter.to(dtype)))
+            scale_new = atol + rtol * torch.abs(Y_new[0][..., 0])
+            d0, D0 = d[0], D[0]
+            pdt = D0.dtype
+            err = bcast(error_const[order].to(pdt), d0) * d0
+            if config.sens_error_control and m and not split:
+                scale_full = atol + rtol * torch.abs(Y_new[0])
+                error_norm = rms_norm(err / scale_full).to(dtype)
+            else:
+                scale_full = None
+                error_norm = rms_norm(err[..., 0] / scale_new).to(dtype)
+            # NaN compares false and would ACCEPT a garbage step
+            bad_err = ~torch.isfinite(error_norm)
+            error_norm = torch.where(bad_err, 2.0 * one, error_norm)
+            reject = converged & ((error_norm > 1.0) | bad_err)
+            accept = converged & ~reject
 
-        # --- order/step adaptation once n_equal > order ---
-        n_equal_acc = n_equal_steps + 1
-        do_adapt = accept & (n_equal_acc >= order + 1)
-        bi = torch.arange(B, device=dev)
-        ec_m = error_const[torch.clamp(order - 1, min=0)].to(pdt)
-        ec_p = error_const[torch.clamp(order + 1, max=MAX_ORDER)].to(pdt)
-        # D_acc[order] = D[order] + d;  D_acc[order+2] = d - D[order+1]
-        err_m = bcast(ec_m, d0) * (D0[bi, order] + d0)
-        err_p = bcast(ec_p, d0) * (d0 - D0[bi, order + 1])
-        if scale_full is not None:
-            em = rms_norm(err_m / scale_full).to(dtype)
-            ep = rms_norm(err_p / scale_full).to(dtype)
-        else:
-            em = rms_norm(err_m[..., 0] / scale_new).to(dtype)
-            ep = rms_norm(err_p[..., 0] / scale_new).to(dtype)
-        err_m_norm = torch.where(order > 1, em, inf)
-        err_p_norm = torch.where(order < MAX_ORDER, ep, inf)
-        error_norms = torch.stack([err_m_norm, error_norm, err_p_norm], 1)
-        exponents = -1.0 / (orderf[:, None]
-                            + torch.arange(3, **kw)[None, :])
-        finite_norm = torch.isfinite(error_norms)
-        safe_norms = torch.where(finite_norm,
-                                 torch.clamp(error_norms, min=eps), one)
-        factors = torch.where(finite_norm, safe_norms ** exponents,
-                              0.0 * one)
-        best = torch.argmax(factors, dim=1)
-        order_adapt = torch.clamp(order + best - 1, 1, MAX_ORDER)
-        factor_adapt = torch.clamp(safety * torch.amax(factors, dim=1),
-                                   max=config.max_factor)
+            # --- order/step adaptation once n_equal > order ---
+            n_equal_acc = n_equal_steps + 1
+            do_adapt = accept & (n_equal_acc >= order + 1)
+            bi = torch.arange(B, device=dev)
+            ec_m = error_const[torch.clamp(order - 1, min=0)].to(pdt)
+            ec_p = error_const[torch.clamp(order + 1, max=MAX_ORDER)].to(pdt)
+            # D_acc[order] = D[order] + d;  D_acc[order+2] = d - D[order+1]
+            err_m = bcast(ec_m, d0) * (D0[bi, order] + d0)
+            err_p = bcast(ec_p, d0) * (d0 - D0[bi, order + 1])
+            if scale_full is not None:
+                em = rms_norm(err_m / scale_full).to(dtype)
+                ep = rms_norm(err_p / scale_full).to(dtype)
+            else:
+                em = rms_norm(err_m[..., 0] / scale_new).to(dtype)
+                ep = rms_norm(err_p[..., 0] / scale_new).to(dtype)
+            err_m_norm = torch.where(order > 1, em, inf)
+            err_p_norm = torch.where(order < MAX_ORDER, ep, inf)
+            error_norms = torch.stack([err_m_norm, error_norm, err_p_norm], 1)
+            exponents = -1.0 / (orderf[:, None]
+                                + torch.arange(3, **kw)[None, :])
+            finite_norm = torch.isfinite(error_norms)
+            safe_norms = torch.where(finite_norm,
+                                     torch.clamp(error_norms, min=eps), one)
+            factors = torch.where(finite_norm, safe_norms ** exponents,
+                                  0.0 * one)
+            best = torch.argmax(factors, dim=1)
+            order_adapt = torch.clamp(order + best - 1, 1, MAX_ORDER)
+            factor_adapt = torch.clamp(safety * torch.amax(factors, dim=1),
+                                       max=config.max_factor)
 
-        factor_rej = torch.clamp(
-            safety * error_norm ** (-1.0 / (orderf + 1.0)),
-            min=config.min_factor)
-        h_factor = torch.where(
-            case_C, 0.5 * one,
-            torch.where(reject, factor_rej,
-                        torch.where(do_adapt, factor_adapt, one)))
-        change = case_C | reject | do_adapt
-        order_new = torch.where(do_adapt, order_adapt, order)
+            factor_rej = torch.clamp(
+                safety * error_norm ** (-1.0 / (orderf + 1.0)),
+                min=config.min_factor)
+            h_factor = torch.where(
+                case_C, 0.5 * one,
+                torch.where(reject, factor_rej,
+                            torch.where(do_adapt, factor_adapt, one)))
+            change = case_C | reject | do_adapt
+            order_new = torch.where(do_adapt, order_adapt, order)
 
-        # Compose (change_D rescale ∘ accept update) into one (D_ROWS,
-        # D_ROWS) map W and a rank-one weight v per member:
-        # D_new = W @ D + v ⊗ d. The accept update (append d at rows
-        # order+1/order+2, then the downward telescoping sweep) is
-        #   rows i<=order:  Σ_{j=i}^{order} D[j] + d
-        #   row order+1:    d
-        #   row order+2:    d - D[order+1]
-        #   rows above:     identity
-        ri, rj = rows[:, None], rows[None, :]
-        o = order[:, None, None]
-        eyeD = (ri == rj).to(dtype)
-        acc_M = torch.where(
-            ri <= o, ((rj >= ri) & (rj <= o)).to(dtype),
-            torch.where(ri == o + 2, -(rj == o + 1).to(dtype),
-                        ((ri == rj) & (ri > o + 2)).to(dtype)))
-        acc_u = (rows[None, :] <= order[:, None] + 2).to(dtype)
-        Ma = torch.where(accept[:, None, None], acc_M, eyeD)
-        ua = torch.where(accept[:, None], acc_u, 0.0 * one)
-        Tc = torch.where(change[:, None, None],
-                         _padded_transform(h_factor, order_new), eyeD)
-        W = Tc @ Ma
-        v = (Tc @ ua[:, :, None])[:, :, 0]
-        D_new = tuple(_wsum(W, Dp)
-                      + bcast(v.to(Dp.dtype), Dp) * dp[:, None]
-                      for Dp, dp in zip(D, d))
-        h_new = h_abs * torch.where(change, h_factor, one)
+            # Compose (change_D rescale ∘ accept update) into one (D_ROWS,
+            # D_ROWS) map W and a rank-one weight v per member:
+            # D_new = W @ D + v ⊗ d. The accept update (append d at rows
+            # order+1/order+2, then the downward telescoping sweep) is
+            #   rows i<=order:  Σ_{j=i}^{order} D[j] + d
+            #   row order+1:    d
+            #   row order+2:    d - D[order+1]
+            #   rows above:     identity
+            ri, rj = rows[:, None], rows[None, :]
+            o = order[:, None, None]
+            eyeD = (ri == rj).to(dtype)
+            acc_M = torch.where(
+                ri <= o, ((rj >= ri) & (rj <= o)).to(dtype),
+                torch.where(ri == o + 2, -(rj == o + 1).to(dtype),
+                            ((ri == rj) & (ri > o + 2)).to(dtype)))
+            acc_u = (rows[None, :] <= order[:, None] + 2).to(dtype)
+            Ma = torch.where(accept[:, None, None], acc_M, eyeD)
+            ua = torch.where(accept[:, None], acc_u, 0.0 * one)
+            Tc = torch.where(change[:, None, None],
+                             _padded_transform(h_factor, order_new), eyeD)
+            W = Tc @ Ma
+            v = (Tc @ ua[:, :, None])[:, :, 0]
+            D_new = tuple(_wsum(W, Dp)
+                          + bcast(v.to(Dp.dtype), Dp) * dp[:, None]
+                          for Dp, dp in zip(D, d))
+            h_new = h_abs * torch.where(change, h_factor, one)
 
-        t_next = torch.where(accept, t_new, t)
-        n_equal_new = torch.where(accept & ~do_adapt, n_equal_acc, 0)
-        # SciPy keeps the factorization across error-test rejections;
-        # only Newton failure, a Jacobian refresh or adaptation drop it.
-        lu_valid_new = ~(case_B | case_C | do_adapt)
-        current_jac_new = torch.where(
-            case_B, True, torch.where(accept, False, st["current_jac"]))
+            t_next = torch.where(accept, t_new, t)
+            n_equal_new = torch.where(accept & ~do_adapt, n_equal_acc, 0)
+            # SciPy keeps the factorization across error-test rejections;
+            # only Newton failure, a Jacobian refresh or adaptation drop it.
+            lu_valid_new = ~(case_B | case_C | do_adapt)
+            current_jac_new = torch.where(
+                case_B, True, torch.where(accept, False, st["current_jac"]))
 
         # --- dense export: this step's interpolant, pre-event-rewrite ---
         if dense_export:
-            write = accept & running & ~too_small
-            slot = torch.clamp(st["naccepted"], max=S - 1).to(torch.int64)
-            for key, val in (("t", t_new), ("h", h_new),
-                             ("order", order_new.to(torch.int32))):
-                buf = seg[key]
-                buf[bi_all, slot] = torch.where(write, val,
-                                                buf[bi_all, slot])
-            for Dp, buf in zip(D_new, seg["D"]):
-                buf[bi_all, slot] = torch.where(
-                    bcast(write, Dp[:, :MAX_ORDER + 1]),
-                    Dp[:, :MAX_ORDER + 1], buf[bi_all, slot])
+            with trace.span("bdf.dense"):
+                write = accept & running & ~too_small
+                slot = torch.clamp(st["naccepted"], max=S - 1).to(torch.int64)
+                for key, val in (("t", t_new), ("h", h_new),
+                                 ("order", order_new.to(torch.int32))):
+                    buf = seg[key]
+                    buf[bi_all, slot] = torch.where(write, val,
+                                                    buf[bi_all, slot])
+                for Dp, buf in zip(D_new, seg["D"]):
+                    buf[bi_all, slot] = torch.where(
+                        bcast(write, Dp[:, :MAX_ORDER + 1]),
+                        Dp[:, :MAX_ORDER + 1], buf[bi_all, slot])
 
         # --- state-dependent events ---
         ev_new = {}
@@ -610,116 +623,127 @@ def bdf_solve(
         t_fill_hi = t_new
         D_fill = D_new
         if events is not None:
-            def y_at(tv):
-                # state column of this step's interpolant at tv (B, E)
-                return interp_part(D_new[0], tv, t_new, h_new,
-                                   order_new)[..., 0].to(dtype)
+            with trace.span("bdf.events"):
+                def y_at(tv):
+                    # state column of this step's interpolant at tv (B, E)
+                    return interp_part(D_new[0], tv, t_new, h_new,
+                                       order_new)[..., 0].to(dtype)
 
-            g_old = st["g_old"]
-            g_new = torch.as_tensor(events.fn(t_new, Y_new[0][..., 0]
-                                              .to(dtype)), **kw)
-            up = (g_old <= 0) & (g_new >= 0)
-            down = (g_old >= 0) & (g_new <= 0)
-            trig = torch.where(ev_dir > 0, up,
-                               torch.where(ev_dir < 0, down, up | down))
-            fired = accept[:, None] & trig
-            hi = t_new[:, None].expand(B, n_ev)
-            if bool((fired & running[:, None]).any()):
-                # bisection on the step's polynomial; fn is evaluated once
-                # per event at that event's mids, keeping member order
-                lo, glo = t[:, None].expand(B, n_ev), g_old
-                for _ in range(int(events.bisect_iters)):
-                    mid = 0.5 * (lo + hi)
-                    ys_mid = y_at(mid)
-                    g_mid = torch.stack(
-                        [torch.as_tensor(events.fn(mid[:, e],
-                                                   ys_mid[:, e]), **kw)[:, e]
-                         for e in range(n_ev)], dim=1)
-                    same = ((torch.sign(g_mid) == torch.sign(glo))
-                            & (g_mid != 0.0))
-                    lo = torch.where(same, mid, lo)
-                    hi = torch.where(same, hi, mid)
-                    glo = torch.where(same, g_mid, glo)
-            t_root = torch.where(fired, hi, inf)
-            # the earliest terminal root ends the member there; later
-            # occurrences of any event are discarded
-            t_term = torch.amin(torch.where(fired & ev_term, t_root, inf),
-                                dim=1)
-            has_term = torch.isfinite(t_term)
-            rec = fired & (t_root <= t_term[:, None])
-            count = st["ev_count"]
-            slot_e = torch.clamp(count, max=ev_cap - 1).to(torch.int64)
-            can_store = rec & (count < ev_cap)
-            ys_root = y_at(torch.where(torch.isfinite(t_root), t_root,
-                                       t_new[:, None]))
-            ev_t = st["ev_t"].clone()
-            ev_y = st["ev_y"].clone()
-            old_t = torch.gather(ev_t, 2, slot_e[..., None])[..., 0]
-            ev_t.scatter_(2, slot_e[..., None],
-                          torch.where(can_store, t_root, old_t)[..., None])
-            idx_y = slot_e[..., None, None].expand(B, n_ev, 1, n)
-            old_y = torch.gather(ev_y, 2, idx_y)[:, :, 0]
-            ev_y.scatter_(2, idx_y, torch.where(can_store[..., None],
-                                                ys_root, old_y)[:, :, None])
-            t_term_safe = torch.where(has_term, t_term, t_new)
-            ev_new = dict(g_old=torch.where(accept[:, None], g_new, g_old),
-                          ev_t=ev_t, ev_y=ev_y,
-                          ev_count=count + rec.to(torch.int32))
-            # t_eval is filled from the step's own polynomial up to the
-            # event time; the anchor row then moves to the event state
-            t_fill_hi = t_term_safe
-            Y_term = tuple(interp_part(Dp, t_term_safe[:, None], t_new,
-                                       h_new, order_new)[:, 0]
-                           for Dp in D_new)
-            D_new = tuple(torch.cat([torch.where(bcast(has_term, Yt), Yt,
-                                                 Dp[:, 0])[:, None],
-                                     Dp[:, 1:]], dim=1)
-                          for Dp, Yt in zip(D_new, Y_term))
+                g_old = st["g_old"]
+                g_new = torch.as_tensor(events.fn(t_new, Y_new[0][..., 0]
+                                                  .to(dtype)), **kw)
+                up = (g_old <= 0) & (g_new >= 0)
+                down = (g_old >= 0) & (g_new <= 0)
+                trig = torch.where(ev_dir > 0, up,
+                                   torch.where(ev_dir < 0, down, up | down))
+                fired = accept[:, None] & trig
+                hi = t_new[:, None].expand(B, n_ev)
+                if trace.read((fired & running[:, None]).any(),
+                              "bdf.reads"):
+                    # bisection on the step's polynomial; fn is evaluated once
+                    # per event at that event's mids, keeping member order
+                    lo, glo = t[:, None].expand(B, n_ev), g_old
+                    for _ in range(int(events.bisect_iters)):
+                        mid = 0.5 * (lo + hi)
+                        ys_mid = y_at(mid)
+                        g_mid = torch.stack(
+                            [torch.as_tensor(events.fn(mid[:, e],
+                                                       ys_mid[:, e]),
+                                             **kw)[:, e]
+                             for e in range(n_ev)], dim=1)
+                        same = ((torch.sign(g_mid) == torch.sign(glo))
+                                & (g_mid != 0.0))
+                        lo = torch.where(same, mid, lo)
+                        hi = torch.where(same, hi, mid)
+                        glo = torch.where(same, g_mid, glo)
+                t_root = torch.where(fired, hi, inf)
+                # the earliest terminal root ends the member there; later
+                # occurrences of any event are discarded
+                t_term = torch.amin(torch.where(fired & ev_term, t_root, inf),
+                                    dim=1)
+                has_term = torch.isfinite(t_term)
+                rec = fired & (t_root <= t_term[:, None])
+                count = st["ev_count"]
+                slot_e = torch.clamp(count, max=ev_cap - 1).to(torch.int64)
+                can_store = rec & (count < ev_cap)
+                ys_root = y_at(torch.where(torch.isfinite(t_root), t_root,
+                                           t_new[:, None]))
+                ev_t = st["ev_t"].clone()
+                ev_y = st["ev_y"].clone()
+                old_t = torch.gather(ev_t, 2, slot_e[..., None])[..., 0]
+                ev_t.scatter_(2, slot_e[..., None],
+                              torch.where(can_store, t_root, old_t)[..., None])
+                idx_y = slot_e[..., None, None].expand(B, n_ev, 1, n)
+                old_y = torch.gather(ev_y, 2, idx_y)[:, :, 0]
+                ev_y.scatter_(2, idx_y,
+                              torch.where(can_store[..., None], ys_root,
+                                          old_y)[:, :, None])
+                t_term_safe = torch.where(has_term, t_term, t_new)
+                ev_new = dict(g_old=torch.where(accept[:, None], g_new, g_old),
+                              ev_t=ev_t, ev_y=ev_y,
+                              ev_count=count + rec.to(torch.int32))
+                # t_eval is filled from the step's own polynomial up to the
+                # event time; the anchor row then moves to the event state
+                t_fill_hi = t_term_safe
+                Y_term = tuple(interp_part(Dp, t_term_safe[:, None], t_new,
+                                           h_new, order_new)[:, 0]
+                               for Dp in D_new)
+                D_new = tuple(torch.cat([torch.where(bcast(has_term, Yt), Yt,
+                                                     Dp[:, 0])[:, None],
+                                         Dp[:, 1:]], dim=1)
+                              for Dp, Yt in zip(D_new, Y_term))
 
         # --- dense output at t_eval from the post-update D/order/h ---
-        t_old_fill = torch.where(accept, t, inf)
-        if dw:
-            ys_acc = tuple(
-                common.interp_accumulate_windowed(
-                    t_eval, lo_eval, t_old_fill, t_fill_hi,
-                    lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
-                                                  order_new), acc, dw,
-                    gate=accept)
-                for Dp, acc in zip(D_fill, st["ys_acc"]))
-        else:
-            ys_acc = tuple(
-                common.interp_accumulate(
-                    t_eval, t_old_fill, t_fill_hi,
-                    lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
-                                                  order_new), acc)
-                for Dp, acc in zip(D_fill, st["ys_acc"]))
+        with trace.span("bdf.dense"):
+            t_old_fill = torch.where(accept, t, inf)
+            if dw:
+                ys_acc = tuple(
+                    common.interp_accumulate_windowed(
+                        t_eval, lo_eval, t_old_fill, t_fill_hi,
+                        lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
+                                                      order_new), acc, dw,
+                        gate=accept)
+                    for Dp, acc in zip(D_fill, st["ys_acc"]))
+            else:
+                ys_acc = tuple(
+                    common.interp_accumulate(
+                        t_eval, t_old_fill, t_fill_hi,
+                        lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
+                                                      order_new), acc)
+                    for Dp, acc in zip(D_fill, st["ys_acc"]))
 
-        nsteps = st["nsteps"] + 1
-        done, status = common.step_status(accept, t_new, t_bound, nsteps,
-                                          config.max_steps)
-        if has_term is not None:
-            status = torch.where(has_term, STATUS_EVENT, status).to(
-                torch.int32)
-            t_next = torch.where(has_term, t_term_safe, t_next)
+        with trace.span("bdf.control"):
+            nsteps = st["nsteps"] + 1
+            done, status = common.step_status(accept, t_new, t_bound, nsteps,
+                                              config.max_steps)
+            if has_term is not None:
+                status = torch.where(has_term, STATUS_EVENT, status).to(
+                    torch.int32)
+                t_next = torch.where(has_term, t_term_safe, t_next)
 
-        acc32 = accept.to(torch.int32)
-        new_st = dict(
-            t=t_next, h_abs=h_new, order=order_new, D=D_new, J=J,
-            fact=fact, lu_valid=lu_valid_new, current_jac=current_jac_new,
-            last_accepted=accept, n_equal_steps=n_equal_new, status=status,
-            ys_acc=ys_acc, nsteps=nsteps,
-            naccepted=st["naccepted"] + acc32,
-            nrejected=st["nrejected"] + (reject | case_C).to(torch.int32),
-            nfev=nfev, njev=njev, nlu=nlu,
-            order_hist=st["order_hist"]
-            + torch.nn.functional.one_hot(order, MAX_ORDER + 1)
-            .to(torch.int32) * acc32[:, None], **ev_new)
+            acc32 = accept.to(torch.int32)
+            new_st = dict(
+                t=t_next, h_abs=h_new, order=order_new, D=D_new, J=J,
+                fact=fact, lu_valid=lu_valid_new, current_jac=current_jac_new,
+                last_accepted=accept, n_equal_steps=n_equal_new, status=status,
+                ys_acc=ys_acc, nsteps=nsteps,
+                naccepted=st["naccepted"] + acc32,
+                nrejected=st["nrejected"] + (reject | case_C).to(torch.int32),
+                nfev=nfev, njev=njev, nlu=nlu,
+                order_hist=st["order_hist"]
+                + torch.nn.functional.one_hot(order, MAX_ORDER + 1)
+                .to(torch.int32) * acc32[:, None], **ev_new)
+            return common.settle(dict(st, fact=fact), new_st, too_small,
+                                 running)
 
-        return common.settle(dict(st, fact=fact), new_st, too_small,
-                             running)
-
-    while bool((st["status"] == STATUS_RUNNING).any()):
-        st = body(st)
+    running = trace.read((st["status"] == STATUS_RUNNING).any(),
+                         "bdf.reads")
+    while running:
+        trace.count("bdf.trips")
+        with trace.span("bdf.trip"):
+            st = body(st)
+            running = trace.read(
+                (st["status"] == STATUS_RUNNING).any(), "bdf.reads")
 
     if split:
         ys = st["ys_acc"][0][..., 0]
