@@ -31,7 +31,11 @@ first failed check:
    ``major`` layout, and on a NaN and a singular matrix; timed beside K1
    at B=64, 256, 1024 and 4096 and at the two block-Schur shapes; then
    the launch floor (``[floor]``): an empty kernel through the same launch
-   route at grids of 16 and 256;
+   route at grids of 16 and 256; then ``[K4]``, the mass-action
+   derivative kernel (``csrc/massaction.cu``) against its plain twin for
+   each epilogue as the paths run it (the f64 and f32 Jacobian, the f32
+   sensitivity block, the reduced block in f32 and f64) at B = 256, 1,024
+   and 10,000, one launch a call, timed beside the twin;
 6. the main path of the first slice: the ``bench.py`` contract (MAPK-22,
    BDF with all 30 forward sensitivities, rtol=1e-6, atol=1e-9,
    ``sens_precision='f32'``, ``dense_f32``, ``linear_solver='pallas'``,
@@ -779,6 +783,162 @@ def phase_k3(model, rng):
                                **shape_keys))
 
 
+K4_BATCHES = (256, 1024, 10_000)   # the sens and fit cells' batches, 10k's
+# (epilogue, dtype) as the paths run them: the f64 Jacobian of the state
+# stepper, the f32 sensitivity block of the split stepper, the reduced
+# block of the fit's screen (f32) and polish (f64); the screen's f32
+# Jacobian beside them
+K4_CASES = (("jac", "float64"), ("sens", "float32"), ("sens_dir", "float32"),
+            ("sens_dir", "float64"), ("jac", "float32"))
+K4_DIRS = 12                        # the fit's free rate constants
+# the EGFR paths' shapes: the f64 Jacobian and the f32 reduced block along
+# the 11 free constants, at [egfr-sens]/[egfr-fit]'s and [egfr-major]'s
+# batches
+K4_EGFR_CASES = (("jac", "float64"), ("sens_dir", "float32"))
+K4_EGFR_BATCHES = (EGFR_MAJOR_BATCH, EGFR_BATCH)
+K4_EGFR_DIRS = 11                   # build_egfr_problem's free constants
+
+
+def k4_inputs(rng, net, p_true, B, dtype, dirs):
+    """Members of ``net`` as a trip meets them: states in [0, 1.2), rate
+    constants around ``p_true``, normal sensitivity columns and
+    directions."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    n, rx = net.n_species, net.n_reactions
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dt, device="cuda")
+
+    return dict(y=t(rng.uniform(0.0, 1.2, size=(B, n))),
+                p=t(p_true[None] * np.exp(rng.normal(scale=0.1,
+                                                     size=(B, rx)))),
+                sens=t(rng.standard_normal((B, n, rx))),
+                sens_g=t(rng.standard_normal((B, n, dirs))),
+                C=t(rng.standard_normal((B, rx, dirs))))
+
+
+def k4_call(fns, epilogue, x):
+    jac, sens, sens_dir = fns
+    if epilogue == "jac":
+        return lambda: jac(None, x["y"], x["p"])
+    if epilogue == "sens":
+        return lambda: sens(None, x["y"], x["sens"], x["p"])
+    return lambda: sens_dir(None, x["y"], x["sens_g"], x["p"], x["C"])
+
+
+def k4_bound(epilogue, dtype, B, net, dirs):
+    """Bytes once over HBM (y, p, the Sens block and C read, the output
+    written) and the multiply-adds of the sparse products, per call."""
+    itemsize = 8 if dtype == "float64" else 4
+    n, rx = net.n_species, net.n_reactions
+    nnz_r = int((net.reactants > 0).sum())
+    nnz_s = int((net.stoich != 0).sum())
+    if epilogue == "jac":
+        values, fmas = n + rx + n * n, n * nnz_r
+    else:
+        m = rx if epilogue == "sens" else dirs
+        values = n + rx + 2 * n * m + (rx * m if epilogue == "sens_dir"
+                                       else 0)
+        fmas = (nnz_r + rx + nnz_s) * m
+    peak = F64_FLOPS if dtype == "float64" else F32_FLOPS
+    return bound_ms(B * values * itemsize, B * 2 * fmas / peak)
+
+
+def k4_case(rng, net, p_true, dirs, epilogue, dtype, B):
+    """One shape: one launch, the result against the plain twin, and the
+    kernel's and the twin's times. Returns (max abs err, kernel ms queued,
+    host-paced ms, twin ms, bound ms, bound by)."""
+    import torch
+
+    from tpusysbio_torch import trace
+
+    fns = (net.jac(), net.sens_rhs(), net.sens_rhs_dir())
+    plain = (net.jac_plain(), net.sens_rhs_plain(), net.sens_rhs_dir_plain())
+    x = k4_inputs(rng, net, p_true, B, dtype, dirs)
+    call, twin = k4_call(fns, epilogue, x), k4_call(plain, epilogue, x)
+    tag = f"K4 {epilogue} {dtype} n={net.n_species} B={B}"
+    trace.reset()
+    got = call()
+    torch.cuda.synchronize()
+    launched = trace.counters()
+    check(launched == {"massaction." + epilogue: 1},
+          f"{tag}: launches {launched}")
+    ref = twin()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    tol = 1e-5 if dtype == "float32" else 1e-13
+    check(bool(torch.isfinite(got).all()) and rel <= tol,
+          f"{tag}: rel diff from plain {rel:.3e} > {tol}")
+    return (err, cuda_ms(call, reps=200),
+            cuda_ms(call, reps=200, queued=False), cuda_ms(twin, reps=20),
+            *k4_bound(epilogue, dtype, B, net, dirs))
+
+
+def phase_k4(rng):
+    """K4 (the mass-action derivatives, ``csrc/massaction.cu``) against its
+    plain twin at the paths' shapes (MAPK-22 at the cells' batches, the
+    99-species EGFR network at its paths'), one launch a call, timed from
+    the queue and at the host's pace beside the twin. Returns the kernel's
+    entry of the ``kernels`` line."""
+    from tpusysbio_torch.model import library
+
+    mapk = library._mapk_network(device="cuda")
+    mapk_p = library.mapk_true_params(device="cuda").cpu().numpy()
+    egfr = library._egfr_network(12, device="cuda")
+    egfr_p = library.egfr_true_params(device="cuda").cpu().numpy()
+    check((egfr.n_species, egfr.n_reactions) == (99, 146),
+          f"K4: the EGFR network is {egfr.n_species} x {egfr.n_reactions}")
+    rows = []
+    for epilogue, dtype in K4_CASES:
+        row = dict(epilogue=epilogue, dtype=dtype, ms_by_batch={},
+                   host_paced_ms_by_batch={}, plain_ms_by_batch={},
+                   bound_ms_by_batch={}, max_abs_err_by_batch={})
+        for B in K4_BATCHES:
+            (row["max_abs_err_by_batch"][B], row["ms_by_batch"][B],
+             row["host_paced_ms_by_batch"][B], row["plain_ms_by_batch"][B],
+             row["bound_ms_by_batch"][B], row["bound_by"]) = k4_case(
+                rng, mapk, mapk_p, K4_DIRS, epilogue, dtype, B)
+        rows.append(row)
+        print(f"[K4] {epilogue} {dtype}: kernel ms from the queue "
+              f"{fmt_by_batch(row['ms_by_batch'])}; at the host's pace "
+              f"{fmt_by_batch(row['host_paced_ms_by_batch'])}; plain "
+              f"{fmt_by_batch(row['plain_ms_by_batch'])}; bound "
+              f"{fmt_by_batch(row['bound_ms_by_batch'])} "
+              f"({row['bound_by']}); max abs err vs plain "
+              + ", ".join(f"B={B} {e:.3e}" for B, e in
+                          row["max_abs_err_by_batch"].items()), flush=True)
+    by_shape = {}
+    for epilogue, dtype in K4_EGFR_CASES:
+        for B in K4_EGFR_BATCHES:
+            got = k4_case(rng, egfr, egfr_p, K4_EGFR_DIRS, epilogue, dtype,
+                          B)
+            by_shape[f"{epilogue} {dtype} egfr99 B={B}"] = got
+            print(f"[K4] EGFR-99 {epilogue} {dtype} B={B} (G="
+                  f"{K4_EGFR_DIRS}): kernel {got[1]:.4f} ms from the queue, "
+                  f"{got[2]:.4f} ms at the host's pace; plain {got[3]:.4f} "
+                  f"ms; bound {got[4]:.6f} ms ({got[5]}); max abs err vs "
+                  f"plain {got[0]:.3e}", flush=True)
+    sens = rows[1]
+    errs = {f"{r['epilogue']} {r['dtype']} B={B}": e for r in rows
+            for B, e in r["max_abs_err_by_batch"].items()}
+    errs.update({k: v[0] for k, v in by_shape.items()})
+    return dict(
+        name="massaction", route="cuda",
+        source="tpusysbio_torch/linalg/csrc/massaction.cu",
+        replaces="none (tpusysbio_torch/model/massaction.py's rate "
+                 "gradient and its consumers)",
+        ms=sens["ms_by_batch"][BATCH], ms_by_batch=sens["ms_by_batch"],
+        host_paced_ms_by_batch=sens["host_paced_ms_by_batch"],
+        plain_ms=sens["plain_ms_by_batch"][BATCH],
+        bound_ms=sens["bound_ms_by_batch"][BATCH], bound_by=sens["bound_by"],
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        ms_by_shape={k: v[1] for k, v in by_shape.items()},
+        bound_ms_by_shape={k: v[4] for k, v in by_shape.items()},
+        library_ms_by_shape={}, small_n={}, library_ms=None, cases=rows)
+
+
 def phase_floor():
     """The launch floor: an empty kernel through the kernels' launch route
     (ctypes entry point, PyTorch's current stream), queued as the kernels
@@ -834,6 +994,9 @@ def phase_main_path():
     check(n_ok == BATCH, f"main path: {n_ok}/{BATCH} members status == 1")
     for k in ("gj_inverse_f32", "refine_solve"):
         check(launches[k] > 0, f"main path: kernel {k} was never launched")
+    check(launches["massaction.jac"] > 0 and launches["massaction.sens"] > 0,
+          f"main path: K4 launches {launches}: the Jacobians and "
+          f"sensitivity RHS should take the kernel")
     check(tuple(res.ys.shape) == (BATCH, N_T, 22)
           and tuple(res.sens.shape) == (BATCH, N_T, 22, 30),
           f"main path: shapes {tuple(res.ys.shape)}, {tuple(res.sens.shape)}")
@@ -1209,13 +1372,23 @@ def reset_counters():
     trace.reset()
 
 
+K4_COUNTERS = ("massaction.jac", "massaction.sens", "massaction.sens_dir",
+               "massaction.plain")
+
+
 def kernel_launches():
-    """Launches of each hand-written kernel since ``reset_counters()``."""
+    """Launches of each hand-written kernel since ``reset_counters()``: the
+    ``gpu_lu`` kernels by name, K4 by epilogue and in all
+    (``massaction``), and ``massaction.plain``, the K4 calls whose
+    gradient autograd took through the plain twin."""
     from tpusysbio_torch import trace
     from tpusysbio_torch.linalg import gpu_lu
 
     counts = trace.counters()
-    return {k: counts.get("gpu_lu." + k, 0) for k in gpu_lu.KERNELS}
+    out = {k: counts.get("gpu_lu." + k, 0) for k in gpu_lu.KERNELS}
+    out.update({k: counts.get(k, 0) for k in K4_COUNTERS})
+    out["massaction"] = sum(out[k] for k in K4_COUNTERS[:3])
+    return out
 
 
 def launches_by_size():
@@ -2231,7 +2404,7 @@ def phase_fit_trf(card, problem, fit_top, iters):
     cost_true = float(tight.cost(theta_true))
     runs = {"normal/linear": dict(), "svd/soft_l1": dict(
         subproblem="svd", loss="soft_l1")}
-    launches = dict.fromkeys(gpu_lu.KERNELS, 0)
+    launches = dict.fromkeys(kernel_launches(), 0)
     results = {}
     for tag, kw in runs.items():
         x0 = top if not kw else top[:FIT_TRF_ROBUST]
@@ -4628,7 +4801,8 @@ def main():
     kernels = [phase_k1(model, rng), phase_k2(model, rng),
                phase_k3(model, rng)]
     phase_floor()
-    laps("K1, K2, K3, floor")
+    k4 = phase_k4(rng)
+    laps("K1, K2, K3, floor, K4")
     with tempfile.TemporaryDirectory() as group_dir:
         group_launches = os.path.join(group_dir, "launches.json")
         group = start_cli_group(group_launches)
@@ -4708,6 +4882,13 @@ def main():
         kern["bound_ms_by_shape"][shape] = got["bound_ms"]
         kern["library_ms_by_shape"][shape] = got["library_ms"]
         kern["max_abs_err_by_case"]["n44 radau"] = got["max_abs_err"]
+    kernels.append(k4)
+    paths = {"main": l_main, "fit": l_fit, "fit-major": l_major,
+             "egfr-sens": l_egfr_sens, "egfr-fit": l_egfr_fit,
+             "egfr-major": l_egfr_major, **l_small}
+    for path, l in paths.items():
+        check(l["massaction.plain"] == 0,
+              f"{path}: K4's plain twin ran on the card: {l}")
     for kern in kernels:
         name = kern["name"]
         by_path = {"main": l_main[name], "fit": l_fit[name],

@@ -1,4 +1,6 @@
-"""Build and load the port's CUDA kernels (``linalg/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``linalg/csrc/*.cu``: the
+Newton kernels of ``gpu_lu`` and the mass-action derivatives of
+``model/massaction.py``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a plain
@@ -32,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argument types; each returns a cudaError_t.
 _SIGNATURES = {
     "tsb_gj_inverse_f32": (_P, _P, _I, _I, _P),
@@ -39,6 +42,10 @@ _SIGNATURES = {
     "tsb_gj_major_divide_check": (_P, _P, _P, _P, _I, _P),
     "tsb_refine_solve": (_P, _P, _P, _P, _I, _I, _P),
     "tsb_launch_floor": (_I, _I, _P),
+    "tsb_massaction_f32": (_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L,
+                           _P, _I, _I, _P),
+    "tsb_massaction_f64": (_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L,
+                           _P, _I, _I, _P),
 }
 
 _lib = None

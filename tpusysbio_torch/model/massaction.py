@@ -13,8 +13,23 @@ dtype of ``y``.
 
 As in the reference, the monomials use branchless repeated multiplication
 (exponents 0..3) instead of ``pow``, so ``0^0 = 1``, and the exclusive
-product over the other species uses forward/backward cumulative products
-with no division, exact at zero concentrations.
+product over the other species takes no division, so it is exact at zero
+concentrations. Where it is formed:
+
+- on a CUDA device, the three consumers of the rate gradient (``jac``,
+  ``sens_rhs``, ``sens_rhs_dir``) are one launch each of the hand-written
+  kernel K4 (``linalg/csrc/massaction.cu``), in f32 or f64: it multiplies
+  each reaction's other reactant terms directly, per (reaction, species),
+  and skips the zeros of the network's matrices while keeping the
+  non-finite entries that the dense products give. Each launch counts
+  ``massaction.<epilogue>`` in ``trace.counters()``. A call the kernel
+  cannot take there (another dtype, a network whose member tiles do not
+  fit a block's shared memory, ``vmap`` over its inputs) raises; under
+  autograd or ``torch.func.jvp`` the kernel gives the value and, where an
+  input carries a gradient or a tangent, the plain twin gives those,
+  counted as ``massaction.plain``;
+- on the CPU the plain twins (``jac_plain`` and its siblings) build it
+  from forward and backward cumulative products.
 """
 
 from __future__ import annotations
@@ -24,6 +39,99 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from tpusysbio_torch import trace
+from tpusysbio_torch.linalg import _build, gpu_lu
+
+# The kernel's epilogues, in the order of its epilogue codes.
+EPILOGUES = ("jac", "sens", "sens_dir")
+_TWINS = dict(jac="jac_plain", sens="sens_rhs_plain",
+              sens_dir="sens_rhs_dir_plain")
+_TOO_LARGE = -1   # the kernel's code for member tiles that do not fit
+
+
+def _transform_active() -> bool:
+    """True inside a ``torch.func`` transform: there even a captured
+    tensor is wrapped once an operation touches it."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
+def _plan(R: np.ndarray, S: np.ndarray) -> np.ndarray:
+    """The network's tables for K4, as int32 words (layout in
+    ``csrc/massaction.cu``)."""
+    rx, n = R.shape
+    rj, ri = np.nonzero(R)                   # by reaction, then species
+    rptr = np.searchsorted(rj, np.arange(rx + 1))
+    rent = ri * 4 + R[rj, ri]
+    by_col = np.argsort(ri, kind="stable")   # by species, then reaction
+    cptr = np.searchsorted(ri[by_col], np.arange(n + 1))
+    sk, sj = np.nonzero(S)                   # S by row
+    sptr = np.searchsorted(sk, np.arange(n + 1))
+    qj, qk = np.nonzero(S.T)                 # S by column
+    qptr = np.searchsorted(qj, np.arange(rx + 1))
+    return np.concatenate([
+        [n, rx, len(rj), len(sk)], rptr, rent, cptr, rj[by_col], by_col,
+        sptr, sj, S[sk, sj], qptr, qk, S[qk, qj]]).astype(np.int32)
+
+
+def _twin_call(plain, epilogue, y, p, sens, C):
+    if epilogue == "jac":
+        return plain(None, y, p)
+    if epilogue == "sens":
+        return plain(None, y, sens, p)
+    return plain(None, y, sens, p, C)
+
+
+class _K4(torch.autograd.Function):
+    """K4 under autograd or a ``torch.func`` transform: the launch gives
+    the value (on the tensors under any transform's wrappers); gradients
+    and tangents, where an input has one, come from the plain twin (K4
+    computes no second derivatives), each such use counted as
+    ``massaction.plain``. ``vmap`` over the inputs is refused."""
+
+    @staticmethod
+    def forward(net, epilogue, plain, y, p, sens, C):
+        return net._launch(epilogue, y, p, sens, C)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        net, ctx.epilogue, ctx.plain, *xs = inputs
+        ctx.save_for_backward(*xs)
+        ctx.xs = xs
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[3:]
+        trace.count("massaction.plain")
+        with torch.enable_grad():
+            xs = [None if x is None else x.detach().requires_grad_(w)
+                  for x, w in zip(ctx.saved_tensors, need)]
+            out = _twin_call(ctx.plain, ctx.epilogue, *xs)
+            grads = iter(torch.autograd.grad(
+                out, [x for x, w in zip(xs, need) if w], grad))
+        return (None, None, None) + tuple(next(grads) if w else None
+                                          for w in need)
+
+    @staticmethod
+    def jvp(ctx, _net, _epilogue, _plain, *tangents):
+        trace.count("massaction.plain")
+        at = [i for i, x in enumerate(ctx.xs) if x is not None]
+
+        def twin(*present):
+            xs = [None] * len(ctx.xs)
+            for i, x in zip(at, present):
+                xs[i] = x
+            return _twin_call(ctx.plain, ctx.epilogue, *xs)
+
+        return torch.func.jvp(twin, tuple(ctx.xs[i] for i in at), tuple(
+            torch.zeros_like(ctx.xs[i]) if tangents[i] is None
+            else tangents[i] for i in at))[1]
+
+    @staticmethod
+    def vmap(info, in_dims, net, epilogue, *args):
+        raise RuntimeError(
+            f"massaction.{epilogue}: K4 cannot run under vmap over its "
+            f"inputs; call the network's {_TWINS[epilogue]}() instead")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -84,7 +192,14 @@ class MassActionNetwork:
     def rate_grad(self) -> Callable:
         """``(y, p) -> (monomials (B, rx), M (B, rx, n))`` with
         ``M[b, j, i] = ∂rate_j/∂y_i``. Then ``J = S @ M`` and the
-        sensitivity RHS is ``S @ (M @ Sens + diag(monomials))``."""
+        sensitivity RHS is ``S @ (M @ Sens + diag(monomials))``.
+
+        The plain form, the one the CPU runs: the exclusive product
+        ``Π_{l≠i} y_l^R[j,l]`` as the product of a forward and a backward
+        cumulative product over the species, with no division. On the card
+        ``jac``, ``sens_rhs`` and ``sens_rhs_dir`` call it only for a
+        gradient or a tangent: K4 forms the same product per (reaction,
+        species) from the reactant terms alone, also with no division."""
 
         def grads(y, p):
             R, _ = self._mats(y)
@@ -104,8 +219,82 @@ class MassActionNetwork:
 
         return grads
 
-    def jac(self) -> Callable:
-        """Closed-form state Jacobian ``(t, y, p) -> (B, n, n)``."""
+    def _plan_on(self, device):
+        """K4's tables on ``device``, with their count, R's and S's
+        nonzeros, built once per device."""
+        key = ("plan", device)
+        if key not in self._cache:
+            if self.reactants.numel() and int(self.reactants.max()) > 3:
+                raise ValueError("reaction order > 3 not supported")
+            words = _plan(self.reactants.cpu().numpy(),
+                          self.stoich.cpu().numpy())
+            self._cache[key] = (torch.as_tensor(words, device=device),
+                                len(words), int(words[2]), int(words[3]))
+        return self._cache[key]
+
+    def _on_card(self, epilogue, plain, y, p, sens=None, C=None):
+        """``epilogue`` of K4 for CUDA inputs: one launch, through
+        :class:`_K4` inside a ``torch.func`` transform or where autograd
+        has to differentiate the call."""
+        if _transform_active() or (torch.is_grad_enabled() and any(
+                x is not None and x.requires_grad for x in (y, p, sens, C))):
+            return _K4.apply(self, epilogue, plain, y, p, sens, C)
+        return self._launch(epilogue, y, p, sens, C)
+
+    def _launch(self, epilogue, y, p, sens=None, C=None):
+        """One launch of K4's ``epilogue`` on ``y``'s device and dtype."""
+        dt = y.dtype
+        if dt not in (torch.float32, torch.float64):
+            raise TypeError(f"massaction.{epilogue}: K4 takes float32 or "
+                            f"float64, got {dt}")
+        B, n = y.shape
+        rx = self.n_reactions
+        m = 0 if sens is None else sens.shape[-1]
+        if (n != self.n_species or (sens is not None and sens.shape != (
+                B, n, m)) or (epilogue == "sens" and m != rx)
+                or (C is not None and (C.shape[-2:] != (rx, m) or not (
+                    C.ndim == 2 or (C.ndim == 3 and C.shape[0] in (1, B)))))):
+            raise ValueError(
+                f"massaction.{epilogue}: shapes y {tuple(y.shape)}, Sens "
+                f"{None if sens is None else tuple(sens.shape)}, C "
+                f"{None if C is None else tuple(C.shape)} do not fit a "
+                f"network of {self.n_species} species and {rx} reactions")
+        out = torch.empty((B, n, n if sens is None else m), dtype=dt,
+                          device=y.device)
+        if B == 0 or out.numel() == 0:
+            return out
+        y = y.contiguous()
+        p = p.to(dt).expand(B, rx).contiguous()
+        sens = None if sens is None else sens.to(dt).contiguous()
+        c_stride = 0
+        if C is not None:
+            C = C.to(dt)
+            if C.ndim == 3 and (C.shape[0] == 1 or C.stride(0) == 0):
+                C = C[0]
+            C = C.contiguous()
+            if C.ndim == 3:
+                c_stride = C.shape[1] * C.shape[2]
+        words, n_words, nnz_r, nnz_s = self._plan_on(y.device)
+        fn = getattr(_build.load(), "tsb_massaction_f32" if dt ==
+                     torch.float32 else "tsb_massaction_f64")
+        err = fn(EPILOGUES.index(epilogue), words.data_ptr(), n_words, n,
+                 rx, nnz_r, nnz_s, y.data_ptr(), p.data_ptr(),
+                 0 if sens is None else sens.data_ptr(),
+                 0 if C is None else C.data_ptr(), c_stride,
+                 out.data_ptr(), B, m, gpu_lu._stream(y.device))
+        if err == _TOO_LARGE:
+            raise RuntimeError(
+                f"massaction.{epilogue}: one member's tiles ({n} species, "
+                f"{rx} reactions, {nnz_r} reactant entries) do not fit a "
+                f"block's shared memory on {y.device}")
+        if err != 0:
+            raise RuntimeError(f"massaction.{epilogue} launch failed: "
+                               f"cudaError {err}")
+        trace.count("massaction." + epilogue)
+        return out
+
+    def jac_plain(self) -> Callable:
+        """Plain twin of :meth:`jac`: ``S @ M`` from :meth:`rate_grad`."""
         grads = self.rate_grad()
 
         def j(t, y, p):
@@ -116,9 +305,20 @@ class MassActionNetwork:
 
         return j
 
-    def sens_rhs(self) -> Callable:
-        """Closed-form forward-sensitivity RHS ``(t, y, Sens, p) ->
-        (B, n, m)`` w.r.t. ALL rate constants (m = n_reactions)."""
+    def jac(self) -> Callable:
+        """Closed-form state Jacobian ``(t, y, p) -> (B, n, n)``: K4 on
+        the card, :meth:`jac_plain` on the CPU."""
+        plain = self.jac_plain()
+
+        def j(t, y, p):
+            if y.device.type != "cuda":
+                return plain(t, y, p)
+            return self._on_card("jac", plain, y, p)
+
+        return j
+
+    def sens_rhs_plain(self) -> Callable:
+        """Plain twin of :meth:`sens_rhs`."""
         grads = self.rate_grad()
 
         def fs(t, y, Sens, p):
@@ -130,9 +330,21 @@ class MassActionNetwork:
 
         return fs
 
-    def sens_rhs_dir(self) -> Callable:
-        """Reduced sensitivity RHS ``(t, y, Sens, p, C) -> (B, n, G)``
-        along parameter directions ``C`` (B, m, G) or (m, G)."""
+    def sens_rhs(self) -> Callable:
+        """Closed-form forward-sensitivity RHS ``(t, y, Sens, p) ->
+        (B, n, m)`` w.r.t. ALL rate constants (m = n_reactions): K4 on the
+        card, :meth:`sens_rhs_plain` on the CPU."""
+        plain = self.sens_rhs_plain()
+
+        def fs(t, y, Sens, p):
+            if y.device.type != "cuda":
+                return plain(t, y, Sens, p)
+            return self._on_card("sens", plain, y, p, Sens)
+
+        return fs
+
+    def sens_rhs_dir_plain(self) -> Callable:
+        """Plain twin of :meth:`sens_rhs_dir`."""
         grads = self.rate_grad()
 
         def fs_dir(t, y, Sens, p, C):
@@ -141,6 +353,19 @@ class MassActionNetwork:
             mono, M = grads(y, p.to(y.dtype))
             inner = M @ Sens + mono[:, :, None] * C.to(y.dtype)
             return S @ inner
+
+        return fs_dir
+
+    def sens_rhs_dir(self) -> Callable:
+        """Reduced sensitivity RHS ``(t, y, Sens, p, C) -> (B, n, G)``
+        along parameter directions ``C`` (B, m, G) or (m, G): K4 on the
+        card, :meth:`sens_rhs_dir_plain` on the CPU."""
+        plain = self.sens_rhs_dir_plain()
+
+        def fs_dir(t, y, Sens, p, C):
+            if y.device.type != "cuda":
+                return plain(t, y, Sens, p, C)
+            return self._on_card("sens_dir", plain, y, p, Sens, C)
 
         return fs_dir
 

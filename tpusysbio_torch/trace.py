@@ -4,7 +4,9 @@ Counters are always on: ``count(name, k)`` adds to a dict, and
 ``counters()`` returns a copy of it. The port counts each host read of a
 device value (``<layer>.reads``), the BDF stepper's trips (``bdf.trips``)
 and every launch of a hand-written kernel (``gpu_lu.<kernel>`` and, for
-the Gauss-Jordan kernels, ``gpu_lu.<kernel>.n<n>`` by matrix size).
+the Gauss-Jordan kernels, ``gpu_lu.<kernel>.n<n>`` by matrix size; the
+mass-action kernel's ``massaction.<epilogue>``, and ``massaction.plain``
+for a launch whose gradient autograd took through the plain twin).
 
 Spans record only while recording is on: while a ``torch.profiler``
 session is active (whatever its activities), or inside ``recording()``.
