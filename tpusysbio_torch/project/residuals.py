@@ -507,9 +507,10 @@ class Project:
         if with_jac:
             dsim = dsim_emg.reshape(N, R, self.n_theta)
             if b.n_groups:
-                B, dB = _scale_factors_and_grad(
-                    sim, dsim, data, inv_var, group, mask, b.n_groups,
-                    self._seg_index)
+                with trace.span("project.scale"):
+                    B, dB = _scale_factors_and_grad(
+                        sim, dsim, data, inv_var, group, mask, b.n_groups,
+                        self._seg_index)
             else:
                 B = torch.ones((N, 1), dtype=theta.dtype,
                                device=theta.device)
@@ -526,8 +527,9 @@ class Project:
                 J = torch.cat([J, J_p], dim=1)
         else:
             if b.n_groups:
-                B = _scale_factors(sim, data, inv_var, group, mask,
-                                   b.n_groups, self._seg_index)
+                with trace.span("project.scale"):
+                    B = _scale_factors(sim, data, inv_var, group, mask,
+                                       b.n_groups, self._seg_index)
             else:
                 B = torch.ones((N, 1), dtype=theta.dtype,
                                device=theta.device)

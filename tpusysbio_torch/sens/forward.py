@@ -19,16 +19,21 @@ from typing import Callable
 
 import torch
 
+from tpusysbio_torch import trace
+
 
 def _columns(rhs: Callable, t, y, p, S, D):
     """``jvp(rhs(t, ·, ·), (y, p), (S[..., k], D[..., k]))`` for every k,
-    stacked on the last axis."""
+    stacked on the last axis: one span ``ad.sens`` a call, counted as one
+    jvp a column (``ad.jvps``)."""
 
     def col(s_col, d_col):
         return torch.func.jvp(lambda yy, pp: rhs(t, yy, pp), (y, p),
                               (s_col, d_col))[1]
 
-    return torch.func.vmap(col, in_dims=(2, 2), out_dims=2)(S, D)
+    trace.count("ad.jvps", S.shape[-1])
+    with trace.span("ad.sens"):
+        return torch.func.vmap(col, in_dims=(2, 2), out_dims=2)(S, D)
 
 
 def _primal(x: torch.Tensor, dtype) -> torch.Tensor:

@@ -10,6 +10,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from tpusysbio_torch import trace
+
 STATUS_RUNNING = 0
 STATUS_DONE = 1
 STATUS_TOO_SMALL_STEP = 2   # h underflowed machine spacing
@@ -32,12 +34,15 @@ def batched_jacobian(fn, y: torch.Tensor) -> torch.Tensor:
     direction, vmapped over the n directions. The directions take the
     dtype of ``y``; the result takes that of ``fn``'s output (f64 when the
     RHS mixes an f64 time into an f32 state, as the reference's
-    ``jax.jacfwd`` does)."""
+    ``jax.jacfwd`` does). One span ``ad.jac`` a call, counted as n jvps
+    (``ad.jvps``)."""
     B, n = y.shape
-    basis = torch.eye(n, dtype=y.dtype, device=y.device)[:, None, :]
-    cols = torch.func.vmap(
-        lambda v: torch.func.jvp(fn, (y,), (v,))[1])(basis.expand(n, B, n))
-    return cols.permute(1, 2, 0)
+    trace.count("ad.jvps", n)
+    with trace.span("ad.jac"):
+        basis = torch.eye(n, dtype=y.dtype, device=y.device)[:, None, :]
+        cols = torch.func.vmap(lambda v: torch.func.jvp(fn, (y,), (v,))[1])(
+            basis.expand(n, B, n))
+        return cols.permute(1, 2, 0)
 
 
 class EventSpec(NamedTuple):

@@ -7,6 +7,11 @@ and every launch of a hand-written kernel (``gpu_lu.<kernel>`` and, for
 the Gauss-Jordan kernels, ``gpu_lu.<kernel>.n<n>`` by matrix size; the
 mass-action kernel's ``massaction.<epilogue>``, and ``massaction.plain``
 for a launch whose gradient autograd took through the plain twin).
+The forward-mode AD derivatives of a model without closed-form ones count
+their jvps (``ad.jvps``): n for a state Jacobian
+(``solvers/common.py::batched_jacobian``, span ``ad.jac``), one a column
+for the sensitivity columns (``sens/forward.py``, span ``ad.sens``).
+``Project.evaluate`` times its pooled scale factors as ``project.scale``.
 
 Spans record only while recording is on: while a ``torch.profiler``
 session is active (whatever its activities), or inside ``recording()``.
