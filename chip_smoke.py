@@ -35,7 +35,12 @@ first failed check:
    derivative kernel (``csrc/massaction.cu``) against its plain twin for
    each epilogue as the paths run it (the f64 and f32 Jacobian, the f32
    sensitivity block, the reduced block in f32 and f64) at B = 256, 1,024
-   and 10,000, one launch a call, timed beside the twin;
+   and 10,000, one launch a call, timed beside the twin; then ``[K5]``,
+   the BDF stepper's dense-output fold (``csrc/dense_fold.cu``) against
+   its plain twin, bit for bit, on MAPK-22's split parts and 41-point
+   grid at B = 256, 1,024 and 10,000, one launch a call, timed beside the
+   twin and the bytes it touches; every path below that runs the BDF
+   stepper must launch it and never take its twin (``bdf.fold.plain``);
 6. the main path of the first slice: the ``bench.py`` contract (MAPK-22,
    BDF with all 30 forward sensitivities, rtol=1e-6, atol=1e-9,
    ``sens_precision='f32'``, ``dense_f32``, ``linear_solver='pallas'``,
@@ -939,6 +944,122 @@ def phase_k4(rng):
         library_ms_by_shape={}, small_n={}, library_ms=None, cases=rows)
 
 
+K5_BATCHES = (256, 1024, 10_000)   # the sens cell's batch, 1,024, 10k's
+K5_H = 0.4   # the steps' size: about one member in six covers a point
+
+
+def k5_inputs(rng, B):
+    """K5's inputs at the cells' shapes: MAPK-22's split parts (the f64
+    state column and the f32 sensitivity block: D's rows and the 41-point
+    accumulator), the shared grid as the stepper holds it (a stride-0
+    expansion), every member's step accepted, of size ``K5_H`` at a random
+    ``t_old``, at a random order."""
+    import torch
+
+    from tpusysbio_torch.solvers import bdf
+
+    f64, f32 = torch.float64, torch.float32
+    n, m = 22, 30
+
+    def normal(shape, dtype):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               device="cuda").to(dtype)
+
+    t_eval = torch.linspace(*T_SPAN, N_T, dtype=f64, device="cuda")
+    t_old = torch.as_tensor(rng.uniform(T_SPAN[0], T_SPAN[1] - K5_H, B),
+                            device="cuda")
+    t_new = t_old + K5_H
+    yes = torch.ones(B, dtype=torch.bool, device="cuda")
+    return dict(
+        ys_acc=(torch.zeros((B, N_T, n, 1), dtype=f64, device="cuda"),
+                torch.zeros((B, N_T, n, m), dtype=f32, device="cuda")),
+        D=(normal((B, bdf.D_ROWS, n, 1), f64),
+           normal((B, bdf.D_ROWS, n, m), f32)),
+        t_eval=t_eval[None].expand(B, -1), t_old=t_old, t_hi=t_new,
+        t_new=t_new, h_new=torch.full((B,), K5_H, dtype=f64, device="cuda"),
+        order_new=torch.as_tensor(rng.integers(1, 6, B), device="cuda"),
+        accept=yes, running=yes, too_small=~yes)
+
+
+def k5_bound(x):
+    """Bytes K5 touches once over HBM: every member's flags, step and
+    order, the shared grid once, and for each member with a point in range
+    its rows 0-5 of D, plus each point's values written; no operation
+    count (a few multiply-adds a byte)."""
+    n = x["D"][0].shape[2]
+    col = sum(Dp.shape[-1] * Dp.element_size() for Dp in x["D"])
+    te = x["t_eval"]
+    hit = (te > x["t_old"][:, None]) & (te <= x["t_hi"][:, None])
+    members, points = int(hit.any(1).sum()), int(hit.sum())
+    B = te.shape[0]
+    nbytes = (B * (3 + 5 * 8) + te.shape[1] * 8 + members * 6 * n * col
+              + points * n * col)
+    return bound_ms(nbytes, 0.0), members, points
+
+
+def phase_k5(rng):
+    """K5 (the BDF stepper's dense-output fold, ``csrc/dense_fold.cu``)
+    against its plain twin at MAPK-22's cell shapes, bit for bit, one
+    launch a call, timed from the queue and at the host's pace beside the
+    twin and the bytes it touches. Returns the kernel's entry of the
+    ``kernels`` line."""
+    import torch
+
+    from tpusysbio_torch import trace
+    from tpusysbio_torch.solvers import bdf
+
+    row = dict(ms_by_batch={}, host_paced_ms_by_batch={},
+               plain_ms_by_batch={}, bound_ms_by_batch={},
+               max_abs_err_by_batch={})
+    for B in K5_BATCHES:
+        x = k5_inputs(rng, B)
+        ref = bdf.dense_fold_plain(**x, dense_f32=True)
+        trace.reset()
+        got = bdf.dense_fold(**x, dense_f32=True)
+        torch.cuda.synchronize()
+        launched = trace.counters()
+        check(launched == {"bdf.fold": 1}, f"K5 B={B}: launches {launched}")
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        check(same, f"K5 B={B}: differs from the plain twin by {err:.3e}")
+
+        def call(x=x):
+            bdf.dense_fold(**x, dense_f32=True)
+
+        def twin(x=x):
+            bdf.dense_fold_plain(**x, dense_f32=True)
+
+        (bound, by), members, points = k5_bound(x)
+        row["max_abs_err_by_batch"][B] = err
+        row["ms_by_batch"][B] = cuda_ms(call, reps=200)
+        row["host_paced_ms_by_batch"][B] = cuda_ms(call, reps=200,
+                                                   queued=False)
+        row["plain_ms_by_batch"][B] = cuda_ms(twin, reps=20)
+        row["bound_ms_by_batch"][B] = bound
+        print(f"[K5] B={B} ({members} members with {points} points in "
+              f"range): kernel {row['ms_by_batch'][B]:.4f} ms from the "
+              f"queue, {row['host_paced_ms_by_batch'][B]:.4f} ms at the "
+              f"host's pace; plain {row['plain_ms_by_batch'][B]:.4f} ms; "
+              f"bound {bound:.6f} ms ({by}); max abs err vs plain "
+              f"{err:.3e}", flush=True)
+        del x, ref, got
+        torch.cuda.empty_cache()
+    return dict(
+        name="bdf.fold", route="cuda",
+        source="tpusysbio_torch/linalg/csrc/dense_fold.cu",
+        replaces="none (tpusysbio_torch/solvers/bdf.py's whole-grid "
+                 "dense output and settle's where on the accumulator)",
+        ms=row["ms_by_batch"][BATCH], ms_by_batch=row["ms_by_batch"],
+        host_paced_ms_by_batch=row["host_paced_ms_by_batch"],
+        plain_ms=row["plain_ms_by_batch"][BATCH],
+        bound_ms=row["bound_ms_by_batch"][BATCH], bound_by="bytes",
+        max_abs_err=max(row["max_abs_err_by_batch"].values()),
+        max_abs_err_by_case={f"B={B}": e for B, e in
+                             row["max_abs_err_by_batch"].items()},
+        ms_by_shape={}, bound_ms_by_shape={}, library_ms_by_shape={},
+        small_n={}, library_ms=None, cases=[row])
+
+
 def phase_floor():
     """The launch floor: an empty kernel through the kernels' launch route
     (ctypes entry point, PyTorch's current stream), queued as the kernels
@@ -1374,19 +1495,22 @@ def reset_counters():
 
 K4_COUNTERS = ("massaction.jac", "massaction.sens", "massaction.sens_dir",
                "massaction.plain")
+K5_COUNTERS = ("bdf.fold", "bdf.fold.plain", "bdf.trips")
 
 
 def kernel_launches():
     """Launches of each hand-written kernel since ``reset_counters()``: the
     ``gpu_lu`` kernels by name, K4 by epilogue and in all
     (``massaction``), and ``massaction.plain``, the K4 calls whose
-    gradient autograd took through the plain twin."""
+    gradient autograd took through the plain twin; K5's (``bdf.fold``),
+    the folds whose derivatives its plain twin took (``bdf.fold.plain``) and
+    the BDF trips they go with (``bdf.trips``)."""
     from tpusysbio_torch import trace
     from tpusysbio_torch.linalg import gpu_lu
 
     counts = trace.counters()
     out = {k: counts.get("gpu_lu." + k, 0) for k in gpu_lu.KERNELS}
-    out.update({k: counts.get(k, 0) for k in K4_COUNTERS})
+    out.update({k: counts.get(k, 0) for k in K4_COUNTERS + K5_COUNTERS})
     out["massaction"] = sum(out[k] for k in K4_COUNTERS[:3])
     return out
 
@@ -4802,7 +4926,8 @@ def main():
                phase_k3(model, rng)]
     phase_floor()
     k4 = phase_k4(rng)
-    laps("K1, K2, K3, floor, K4")
+    k5 = phase_k5(rng)
+    laps("K1, K2, K3, floor, K4, K5")
     with tempfile.TemporaryDirectory() as group_dir:
         group_launches = os.path.join(group_dir, "launches.json")
         group = start_cli_group(group_launches)
@@ -4882,13 +5007,19 @@ def main():
         kern["bound_ms_by_shape"][shape] = got["bound_ms"]
         kern["library_ms_by_shape"][shape] = got["library_ms"]
         kern["max_abs_err_by_case"]["n44 radau"] = got["max_abs_err"]
-    kernels.append(k4)
+    kernels += [k4, k5]
     paths = {"main": l_main, "fit": l_fit, "fit-major": l_major,
              "egfr-sens": l_egfr_sens, "egfr-fit": l_egfr_fit,
              "egfr-major": l_egfr_major, **l_small}
     for path, l in paths.items():
         check(l["massaction.plain"] == 0,
               f"{path}: K4's plain twin ran on the card: {l}")
+        check(l["bdf.fold.plain"] == 0
+              and (l["bdf.fold"] > 0 or l["bdf.trips"] == 0),
+              f"{path}: the BDF trips' dense output did not take K5: {l}")
+    fold_paths = {p: f"{l['bdf.fold']}/{l['bdf.trips']}"
+                  for p, l in paths.items() if l["bdf.trips"]}
+    print(f"[K5] launches / BDF trips by path: {fold_paths}", flush=True)
     for kern in kernels:
         name = kern["name"]
         by_path = {"main": l_main[name], "fit": l_fit[name],

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``linalg/csrc/*.cu``: the
-Newton kernels of ``gpu_lu`` and the mass-action derivatives of
-``model/massaction.py``).
+Newton kernels of ``gpu_lu``, the mass-action derivatives of
+``model/massaction.py`` and the BDF stepper's dense-output fold of
+``solvers/bdf.py``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a plain
@@ -46,6 +47,8 @@ _SIGNATURES = {
                            _P, _I, _I, _P),
     "tsb_massaction_f64": (_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L,
                            _P, _I, _I, _P),
+    "tsb_dense_fold": (_I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P),
 }
 
 _lib = None

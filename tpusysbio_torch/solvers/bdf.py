@@ -33,7 +33,11 @@ run in f32, while time, step size, the error norm's comparison and the
 order logic stay f64.
 
 Each member has its own interval and output grid: ``t_span`` ends may be
-floats or (B,) tensors, ``t_eval`` is (T,) or (B, T).
+floats or (B,) tensors, ``t_eval`` is (T,) or (B, T). Each trip folds its
+step's interpolant into the ``t_eval`` accumulator with :func:`dense_fold`:
+on the card one launch of the hand-written kernel K5
+(``linalg/csrc/dense_fold.cu``) writes only the points the step covers;
+on the CPU its plain twin evaluates the grid and keeps those points.
 
 Channels beside ``t_eval``:
 
@@ -49,7 +53,8 @@ Channels beside ``t_eval``:
   order, ``D[:MAX_ORDER+1]``) into (B, max_steps, ...) buffers for
   ``solvers.dense.OdeSolution``; the buffers are written in place.
 - ``config.dense_window``: the step is capped at the (window-1)-th next
-  ``t_eval`` point and only that window of the grid is interpolated.
+  ``t_eval`` point and the plain twin interpolates only that window of
+  the grid.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ import torch
 
 from tpusysbio_torch import trace
 from tpusysbio_torch.config import SolverConfig
-from tpusysbio_torch.linalg import make_linear_solver
+from tpusysbio_torch.linalg import _build, gpu_lu, make_linear_solver
 from tpusysbio_torch.solvers import common
 from tpusysbio_torch.solvers.common import (
     STATUS_EVENT,
@@ -136,6 +141,208 @@ def _wsum(w, D):
     return out
 
 
+def interp_part(Dp, tv, t_new, h_new, order_new, dense_f32):
+    """BdfDenseOutput of part ``Dp`` (B, D_ROWS, n, k) at times ``tv``
+    (B, T) -> (B, T, n, k). With ``dense_f32`` the correction on top of the
+    exact D[0] anchor runs in f32."""
+    dt = Dp.dtype
+    cdt = torch.float32 if dense_f32 else dt
+    kw = dict(dtype=t_new.dtype, device=t_new.device)
+    jj = torch.arange(MAX_ORDER, **kw)
+    t_shift = t_new[:, None] - h_new[:, None] * jj
+    denom = h_new[:, None] * (1.0 + jj)
+    # form x in f64 (the time differences cancel), then the polynomial
+    x = (tv[:, :, None] - t_shift[:, None, :]) / denom[:, None, :]
+    # running product left to right, as the reference's cumprod (a
+    # CPU torch.cumprod associates differently and rounds elsewhere)
+    xc = x.to(cdt)
+    cols = [xc[..., 0]]
+    for j in range(1, MAX_ORDER):
+        cols.append(cols[-1] * xc[..., j])
+    p = torch.stack(cols, dim=2)
+    ks = torch.arange(1, MAX_ORDER + 1, device=t_new.device)
+    p = torch.where(ks <= order_new[:, None, None], p,
+                    torch.zeros((), dtype=cdt, device=t_new.device))
+    corr = _wsum(p, Dp[:, 1:MAX_ORDER + 1].to(cdt))
+    return Dp[:, None, 0] + corr.to(dt)
+
+
+def dense_fold_plain(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new,
+                     order_new, accept, running, too_small, dense_f32,
+                     window=None):
+    """Plain twin of K5 (:func:`dense_fold`): the interpolant over the
+    whole grid, or over ``window``'s slice, then one ``where``."""
+    gate = accept & running & ~too_small
+
+    def interp(Dp):
+        return lambda tv: interp_part(Dp, tv, t_new, h_new, order_new,
+                                      dense_f32)
+
+    if t_eval.ndim == 1:
+        t_eval = t_eval[None, :].expand(t_old.shape[0], -1)
+    if window is not None:
+        lo, dw = window
+        return tuple(common.interp_accumulate_windowed(
+            t_eval, lo, t_old, t_hi, interp(Dp), acc, dw, gate=gate)
+            for Dp, acc in zip(D, ys_acc))
+    mask = ((t_eval > t_old[:, None]) & (t_eval <= t_hi[:, None])
+            & gate[:, None])
+    return tuple(torch.where(bcast(mask, acc), interp(Dp)(t_eval), acc)
+                 for Dp, acc in zip(D, ys_acc))
+
+
+# (storage dtype, compute dtype) of a part -> K5's code for it
+_FOLD_KINDS = {(torch.float64, torch.float64): 0,
+               (torch.float64, torch.float32): 1,
+               (torch.float32, torch.float32): 2}
+
+
+def _fold_launch(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new, order_new,
+                 accept, running, too_small, dense_f32):
+    """One launch of K5 on the card, writing ``ys_acc`` in place (a
+    non-contiguous part is first copied); returns the written parts."""
+    f32 = torch.float32
+    kinds = [_FOLD_KINDS.get((Dp.dtype, f32 if dense_f32 else Dp.dtype))
+             for Dp in D]
+    if None in kinds or any(acc.dtype != Dp.dtype
+                            for acc, Dp in zip(ys_acc, D)):
+        raise TypeError(
+            f"dense_fold: K5 takes float32 or float64 parts, got D "
+            f"{[Dp.dtype for Dp in D]}, ys_acc {[a.dtype for a in ys_acc]}")
+    if len(D) not in (1, 2) or len(ys_acc) != len(D):
+        raise ValueError(f"dense_fold: K5 takes one or two parts, got "
+                         f"{len(D)} of D and {len(ys_acc)} of ys_acc")
+    times = (t_eval, t_old, t_hi, t_new, h_new)
+    if (t_eval.dtype not in (torch.float32, torch.float64)
+            or any(x.dtype != t_eval.dtype for x in times)):
+        raise TypeError(f"dense_fold: K5 takes float32 or float64 times of "
+                        f"one dtype, got {[x.dtype for x in times]}")
+    if t_eval.ndim == 1:
+        t_eval = t_eval[None, :].expand(t_old.shape[0], -1)
+    B, T = t_eval.shape
+    n, rows = D[0].shape[2], D[0].shape[1]
+    ys_acc = tuple(acc.contiguous() for acc in ys_acc)
+    D = tuple(Dp.contiguous() for Dp in D)
+    parts = []
+    for kind, Dp, acc in zip(kinds, D, ys_acc):
+        parts += [kind, Dp.shape[-1], Dp.data_ptr(), acc.data_ptr()]
+    if len(D) == 1:
+        parts += [-1, 0, None, None]
+    t_old, t_hi, t_new, h_new, order_new, accept, running, too_small = (
+        x.contiguous() for x in (t_old, t_hi, t_new, h_new, order_new,
+                                 accept, running, too_small))
+    err = _build.load().tsb_dense_fold(
+        int(t_eval.dtype == torch.float64), B, T, n, t_eval.data_ptr(),
+        t_eval.stride(0), t_eval.stride(1), t_old.data_ptr(),
+        t_hi.data_ptr(), t_new.data_ptr(), h_new.data_ptr(),
+        order_new.to(torch.int64).data_ptr(), accept.data_ptr(),
+        running.data_ptr(), too_small.data_ptr(), rows, *parts,
+        gpu_lu._stream(t_eval.device))
+    if err != 0:
+        raise RuntimeError(f"dense_fold launch failed: cudaError {err}")
+    trace.count("bdf.fold")
+    return ys_acc
+
+
+def _fold_twin(n_parts, dense_f32, *xs):
+    """:func:`dense_fold_plain` on :class:`_K5`'s flat inputs."""
+    return dense_fold_plain(xs[:n_parts], xs[n_parts:2 * n_parts],
+                            *xs[2 * n_parts:], dense_f32)
+
+
+class _K5(torch.autograd.Function):
+    """K5 under autograd or a ``torch.func`` transform: the launch gives
+    the value, into a copy of the accumulator; gradients and tangents
+    come from the plain twin (whole grid), each such use counted as
+    ``bdf.fold.plain``. A tangent is the twin's with every floating input
+    dual, those the transform did not vary at zero (a zero tangent meets
+    an infinity of ``D`` in a zeroed weight's term as NaN, at a point
+    whose value is NaN already). ``vmap`` over the inputs is refused.
+    Inputs are the parts of ``ys_acc``, then of ``D``, then the times and
+    flags."""
+
+    @staticmethod
+    def forward(n_parts, dense_f32, *xs):
+        return _fold_launch(tuple(a.clone() for a in xs[:n_parts]),
+                            xs[n_parts:2 * n_parts], *xs[2 * n_parts:],
+                            dense_f32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n_parts, ctx.dense_f32, *xs = inputs
+        ctx.save_for_backward(*xs)
+        ctx.xs = xs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        trace.count("bdf.fold.plain")
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(w)
+                  for x, w in zip(ctx.saved_tensors, need)]
+            # a part whose inputs need no gradient gives none
+            out = [(o, g) for o, g in zip(
+                _fold_twin(ctx.n_parts, ctx.dense_f32, *xs), grads)
+                if o.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in out], [x for x, w in zip(xs, need) if w],
+                [g for _, g in out], allow_unused=True))
+        return (None, None) + tuple(next(got) if w else None for w in need)
+
+    @staticmethod
+    def jvp(ctx, _n_parts, _dense_f32, *tangents):
+        trace.count("bdf.fold.plain")
+        at = [i for i, x in enumerate(ctx.xs) if x.is_floating_point()]
+
+        def twin(*floats):
+            xs = list(ctx.xs)
+            for i, x in zip(at, floats):
+                xs[i] = x
+            return _fold_twin(ctx.n_parts, ctx.dense_f32, *xs)
+
+        return torch.func.jvp(twin, tuple(ctx.xs[i] for i in at), tuple(
+            torch.zeros_like(ctx.xs[i]) if tangents[i] is None
+            else tangents[i] for i in at))[1]
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        raise RuntimeError("dense_fold: K5 cannot run under vmap over its "
+                           "inputs; call dense_fold_plain instead")
+
+
+def dense_fold(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new, order_new,
+               accept, running, too_small, dense_f32, window=None):
+    """Fold one step's dense output into the ``t_eval`` accumulator.
+
+    ``ys_acc`` and ``D`` are tuples of parts, (B, T, n, k_p) and (B,
+    D_ROWS, n, k_p); ``t_eval`` (T,) or (B, T); the rest (B,). The points
+    in ``(t_old, t_hi]`` take the interpolant of ``D``'s step (``t_new``,
+    ``h_new``, ``order_new``) on the members with ``accept & running &
+    ~too_small``; every other value keeps its bits. ``window`` ``(lo,
+    dw)`` is ``SolverConfig.dense_window``'s slice for the twin.
+
+    The result replaces ``ys_acc``, which the call consumes: on the card
+    its parts are written in place, so the caller keeps no use of them.
+
+    On the card every call is one launch of K5 (``linalg/csrc/dense_fold.cu``)
+    over every part, which writes only those points and counts
+    ``bdf.fold``; parts or times it has no code for raise. Inside a
+    ``torch.func`` transform, or where autograd has to differentiate the
+    call, the launch still gives the value and the twin the derivatives
+    (:class:`_K5`). On the CPU the plain twin, :func:`dense_fold_plain`,
+    runs."""
+    if not ys_acc[0].is_cuda:
+        return dense_fold_plain(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new,
+                                order_new, accept, running, too_small,
+                                dense_f32, window)
+    xs = (*ys_acc, *D, t_eval, t_old, t_hi, t_new, h_new, order_new, accept,
+          running, too_small)
+    if (torch._C._functorch.peek_interpreter_stack() is not None
+            or (torch.is_grad_enabled() and any(x.requires_grad
+                                                for x in xs))):
+        return _K5.apply(len(D), dense_f32, *xs)
+    return _fold_launch(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new,
+                        order_new, accept, running, too_small, dense_f32)
 
 
 @trace.spanned("bdf.solve")
@@ -262,7 +469,6 @@ def bdf_solve(
     I_n = torch.eye(n, **kw)
     rows = torch.arange(D_ROWS, device=dev)
     gamma_pad = torch.cat([gamma, torch.zeros(D_ROWS - MAX_ORDER - 1, **kw)])
-    ks5 = torch.arange(1, MAX_ORDER + 1, device=dev)
     one = torch.ones((), **kw)
     inf = torch.tensor(float("inf"), **kw)
 
@@ -345,29 +551,6 @@ def bdf_solve(
                                        dtype=Yp.dtype, device=dev)
                            for Yp in Y0b))
     bi_all = torch.arange(B, device=dev)
-
-    def interp_part(Dp, tv, t_new, h_new, order_new):
-        """BdfDenseOutput of part ``Dp`` at times ``tv`` (B, T) ->
-        (B, T, n, k). With ``dense_f32`` the correction on top of the exact
-        D[0] anchor runs in f32."""
-        dt = Dp.dtype
-        cdt = f32 if config.dense_f32 else dt
-        jj = torch.arange(MAX_ORDER, **kw)
-        t_shift = t_new[:, None] - h_new[:, None] * jj
-        denom = h_new[:, None] * (1.0 + jj)
-        # form x in f64 (the time differences cancel), then the polynomial
-        x = (tv[:, :, None] - t_shift[:, None, :]) / denom[:, None, :]
-        # running product left to right, as the reference's cumprod (a
-        # CPU torch.cumprod associates differently and rounds elsewhere)
-        xc = x.to(cdt)
-        cols = [xc[..., 0]]
-        for j in range(1, MAX_ORDER):
-            cols.append(cols[-1] * xc[..., j])
-        p = torch.stack(cols, dim=2)
-        p = torch.where(ks5 <= order_new[:, None, None], p,
-                        torch.zeros((), dtype=cdt, device=dev))
-        corr = _wsum(p, Dp[:, 1:MAX_ORDER + 1].to(cdt))
-        return Dp[:, None, 0] + corr.to(dt)
 
     def body(st):
         with trace.span("bdf.predict"):
@@ -627,7 +810,8 @@ def bdf_solve(
                 def y_at(tv):
                     # state column of this step's interpolant at tv (B, E)
                     return interp_part(D_new[0], tv, t_new, h_new,
-                                       order_new)[..., 0].to(dtype)
+                                       order_new, config.dense_f32
+                                       )[..., 0].to(dtype)
 
                 g_old = st["g_old"]
                 g_new = torch.as_tensor(events.fn(t_new, Y_new[0][..., 0]
@@ -686,31 +870,21 @@ def bdf_solve(
                 # event time; the anchor row then moves to the event state
                 t_fill_hi = t_term_safe
                 Y_term = tuple(interp_part(Dp, t_term_safe[:, None], t_new,
-                                           h_new, order_new)[:, 0]
+                                           h_new, order_new,
+                                           config.dense_f32)[:, 0]
                                for Dp in D_new)
                 D_new = tuple(torch.cat([torch.where(bcast(has_term, Yt), Yt,
                                                      Dp[:, 0])[:, None],
                                          Dp[:, 1:]], dim=1)
                               for Dp, Yt in zip(D_new, Y_term))
 
-        # --- dense output at t_eval from the post-update D/order/h ---
+        # --- dense output at t_eval from the post-update D/order/h, gated
+        #     as settle gates the rest of the state ---
         with trace.span("bdf.dense"):
-            t_old_fill = torch.where(accept, t, inf)
-            if dw:
-                ys_acc = tuple(
-                    common.interp_accumulate_windowed(
-                        t_eval, lo_eval, t_old_fill, t_fill_hi,
-                        lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
-                                                      order_new), acc, dw,
-                        gate=accept)
-                    for Dp, acc in zip(D_fill, st["ys_acc"]))
-            else:
-                ys_acc = tuple(
-                    common.interp_accumulate(
-                        t_eval, t_old_fill, t_fill_hi,
-                        lambda tv, Dp=Dp: interp_part(Dp, tv, t_new, h_new,
-                                                      order_new), acc)
-                    for Dp, acc in zip(D_fill, st["ys_acc"]))
+            ys_acc = dense_fold(st["ys_acc"], D_fill, t_eval, t, t_fill_hi,
+                                t_new, h_new, order_new, accept, running,
+                                too_small, config.dense_f32,
+                                window=(lo_eval, dw) if dw else None)
 
         with trace.span("bdf.control"):
             nsteps = st["nsteps"] + 1
@@ -726,15 +900,16 @@ def bdf_solve(
                 t=t_next, h_abs=h_new, order=order_new, D=D_new, J=J,
                 fact=fact, lu_valid=lu_valid_new, current_jac=current_jac_new,
                 last_accepted=accept, n_equal_steps=n_equal_new, status=status,
-                ys_acc=ys_acc, nsteps=nsteps,
+                nsteps=nsteps,
                 naccepted=st["naccepted"] + acc32,
                 nrejected=st["nrejected"] + (reject | case_C).to(torch.int32),
                 nfev=nfev, njev=njev, nlu=nlu,
                 order_hist=st["order_hist"]
                 + torch.nn.functional.one_hot(order, MAX_ORDER + 1)
                 .to(torch.int32) * acc32[:, None], **ev_new)
-            return common.settle(dict(st, fact=fact), new_st, too_small,
-                                 running)
+            rest = {k: v for k, v in st.items() if k != "ys_acc"}
+            return dict(common.settle(dict(rest, fact=fact), new_st,
+                                      too_small, running), ys_acc=ys_acc)
 
     running = trace.read((st["status"] == STATUS_RUNNING).any(),
                          "bdf.reads")
