@@ -30,8 +30,7 @@ first failed check:
    exchange rows, on tied pivots, through block-Schur at n=97 under the
    ``major`` layout, and on a NaN and a singular matrix; timed beside K1
    at B=64, 256, 1024 and 4096 and at the two block-Schur shapes; then
-   the launch floor (``[floor]``): an empty kernel through the same launch
-   route at grids of 16 and 256; then ``[K4]``, the mass-action
+   ``[K4]``, the mass-action
    derivative kernel (``csrc/massaction.cu``) against its plain twin for
    each epilogue as the paths run it (the f64 and f32 Jacobian, the f32
    sensitivity block, the reduced block in f32 and f64) at B = 256, 1,024
@@ -227,10 +226,9 @@ The lines before the last are a ``{"kernels": [...]}`` JSON object (per
 kernel: launches on those paths, error against its plain version, its
 time, the plain version's, the least time the card could take and the
 library call's) and the card's name and power limit. The last line is
-``{"ok": true, "device": {...}}``. The floor is context for the bounds (no
-one-launch kernel goes below it) and is not in the kernels' line. Library
-calls (``torch.linalg.inv``, ``torch.linalg.solve``) are timed here as
-yardsticks only; the port never calls them.
+``{"ok": true, "device": {...}}``. Library calls (``torch.linalg.inv``,
+``torch.linalg.solve``) are timed here as yardsticks only; the port never
+calls them.
 
 ``python3 chip_smoke.py --profile`` adds one main-path batch, one
 screening evaluation of the fit path, one EGFR evaluation and one JAK-STAT
@@ -1058,29 +1056,6 @@ def phase_k5(rng):
                              row["max_abs_err_by_batch"].items()},
         ms_by_shape={}, bound_ms_by_shape={}, library_ms_by_shape={},
         small_n={}, library_ms=None, cases=[row])
-
-
-def phase_floor():
-    """The launch floor: an empty kernel through the kernels' launch route
-    (ctypes entry point, PyTorch's current stream), queued as the kernels
-    are timed."""
-    import torch
-
-    from tpusysbio_torch.linalg import _build
-
-    fn = _build.load().tsb_launch_floor
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch(blocks):
-        check(fn(blocks, 128, stream) == 0, "floor: the launch failed")
-
-    floor = {g: cuda_ms(lambda: launch(g), reps=200) for g in (16, 256)}
-    paced = {g: cuda_ms(lambda: launch(g), reps=200, queued=False)
-             for g in (16, 256)}
-    print(f"[floor] empty kernel, 128 threads a block, ms from the queue: "
-          f"grid 16 {floor[16]:.4f}, grid 256 {floor[256]:.4f}; at the "
-          f"host's launch pace (ctypes call alone): grid 16 {paced[16]:.4f}, "
-          f"grid 256 {paced[256]:.4f}", flush=True)
 
 
 def phase_main_path():
@@ -4924,10 +4899,9 @@ def main():
     rng = np.random.default_rng(1234)
     kernels = [phase_k1(model, rng), phase_k2(model, rng),
                phase_k3(model, rng)]
-    phase_floor()
     k4 = phase_k4(rng)
     k5 = phase_k5(rng)
-    laps("K1, K2, K3, floor, K4, K5")
+    laps("K1, K2, K3, K4, K5")
     with tempfile.TemporaryDirectory() as group_dir:
         group_launches = os.path.join(group_dir, "launches.json")
         group = start_cli_group(group_launches)

@@ -2,12 +2,15 @@
 and its dispatch in ``tpusysbio_torch/model/massaction.py``.
 
 On the CPU: the kernel's tables, the dispatch rule (CPU tensors take the
-plain twins bit for bit and count no launch; inputs under a ``torch.func``
-transform are refused, captured ones are not) and the autograd route (the
-kernel's value, the twin's gradient), with the launch stood in for by the
-twin. On a card (marker ``cuda``, skipped without one): the kernel itself
-against the plain twin, MAPK-22 and the 99-species EGFR network, and what
-it refuses. This file imports neither jax nor the JAX package:
+plain twins bit for bit and count no launch), and the route of
+``linalg/kernels.py``'s ``call`` that K4 and K5 (the BDF stepper's dense
+fold) share: under a ``torch.func`` transform or autograd the launch gives
+the value, on unwrapped tensors and into a copy of what it writes, the
+twin the tangent or gradient, and ``vmap`` is refused; there each launch
+is stood in for by its twin, and the CPU is taken for the card. On a card
+(marker ``cuda``, skipped without one): the kernel itself against the
+plain twin, MAPK-22 and the 99-species EGFR network, and what it refuses.
+This file imports neither jax nor the JAX package:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_massaction_kernel.py
 """
@@ -17,9 +20,14 @@ import pytest
 import torch
 
 from tpusysbio_torch import trace
+from tpusysbio_torch.linalg import kernels
 from tpusysbio_torch.model import library, massaction
+from tpusysbio_torch.solvers import bdf
+
+import test_torch_dense_fold as fold_cases
 
 EPILOGUES = massaction.EPILOGUES
+BRIDGED = EPILOGUES + ("fold",)   # the kernels behind kernels.call
 # (epilogue, where a non-finite value is planted): the inputs each reads
 PLANTED = [(e, w) for e in EPILOGUES
            for w in ("y", "y0inf", "p", "sens", "C")
@@ -49,22 +57,23 @@ def _inputs(net, B, dtype, device, seed, G=G_DIR):
                 C=t(rng.standard_normal((B, rx, G))))
 
 
-def _call(fns, epilogue, x):
-    jac, sens, sens_dir = fns
-    if epilogue == "jac":
-        return jac(None, x["y"], x["p"])
-    if epilogue == "sens":
-        return sens(None, x["y"], x["sens"], x["p"])
-    return sens_dir(None, x["y"], x["sens_g"], x["p"], x["C"])
-
-
 def _args(epilogue, x):
-    """``(y, p, Sens, C)`` of ``epilogue``, None where it takes none."""
+    """The arguments after ``t`` of ``epilogue``'s function: ``(y, p)``,
+    ``(y, Sens, p)`` or ``(y, Sens, p, C)``."""
     if epilogue == "jac":
-        return x["y"], x["p"], None, None
+        return x["y"], x["p"]
     if epilogue == "sens":
-        return x["y"], x["p"], x["sens"], None
-    return x["y"], x["p"], x["sens_g"], x["C"]
+        return x["y"], x["sens"], x["p"]
+    return x["y"], x["sens_g"], x["p"], x["C"]
+
+
+def _call(fns, epilogue, x):
+    return dict(zip(EPILOGUES, fns))[epilogue](None, *_args(epilogue, x))
+
+
+def _unwrapped(*xs):
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return not any(v is not None and wrapped(v) for v in xs)
 
 
 def _stand_in(launched):
@@ -73,21 +82,83 @@ def _stand_in(launched):
     pointers, an output it allocates) and fills the output from the plain
     twin, with no graph."""
 
-    def launch(self, epilogue, y, p, sens=None, C=None):
+    def launch(self, epilogue, y, *xs):
         launched.append(epilogue)
-        wrapped = torch._C._functorch.is_functorch_wrapped_tensor
-        assert not any(v is not None and wrapped(v) for v in (y, p, sens, C))
-        args = [None if v is None else v.to(y.dtype).contiguous()
-                for v in (y, p, sens, C)]
-        assert all(v is None or v.data_ptr() for v in args)
+        assert _unwrapped(y, *xs)
+        args = [v.to(y.dtype).contiguous() for v in (y, *xs)]
+        assert all(v.data_ptr() for v in args)
         twin = dict(zip(EPILOGUES, _plain(self)))[epilogue]
         with torch.no_grad():
-            ref = massaction._twin_call(twin, epilogue, *args)
+            ref = twin(None, *args)
         out = torch.empty(ref.shape, dtype=y.dtype)
         assert out.data_ptr()
         return out.copy_(ref)
 
     return launch
+
+
+def _fold_stand_in(launched):
+    """A stand-in for ``bdf._fold_launch`` on the CPU: it writes the plain
+    twin's value into the accumulator it is given, in place, as K5 does."""
+
+    def launch(ys_acc, D, *rest):
+        launched.append("fold")
+        assert _unwrapped(*ys_acc, *D, *rest[:-1])
+        with torch.no_grad():
+            ref = bdf.dense_fold_plain(ys_acc, D, *rest)
+        return tuple(acc.copy_(r) for acc, r in zip(ys_acc, ref))
+
+    return launch
+
+
+def _bridged(monkeypatch, kernel, launched):
+    """``kernel``'s dispatched function and plain twin over flat inputs,
+    and those inputs, with the CPU taken for the card and the launch
+    stood in for: a K4 epilogue on EGFR-19, or K5 on the split parts of
+    ``tests/test_torch_dense_fold.py``'s case (member 1 meets an
+    infinity of D in a zeroed weight), dense output in f32."""
+    monkeypatch.setattr(kernels, "_on_card", lambda x: True)
+    if kernel == "fold":
+        monkeypatch.setattr(bdf, "_fold_launch", _fold_stand_in(launched))
+        x = fold_cases._case("split", "shared", "cpu")
+        xs = (*x["ys_acc"], *x["D"], *(x[k] for k in (
+            "t_eval", "t_old", "t_hi", "t_new", "h_new", "order_new",
+            "accept", "running", "too_small")))
+
+        def flat(fn):
+            return lambda *v: fn(v[:2], v[2:4], *v[4:], dense_f32=True)
+
+        return flat(bdf.dense_fold), flat(bdf.dense_fold_plain), xs
+    monkeypatch.setattr(massaction.MassActionNetwork, "_launch",
+                        _stand_in(launched))
+    net = NETWORKS["egfr19"]("cpu")
+    x = _inputs(net, 3, torch.float64, "cpu", 3)
+    fn = dict(zip(EPILOGUES, _dispatched(net)))[kernel]
+    twin = dict(zip(EPILOGUES, _plain(net)))[kernel]
+    return (lambda *v: fn(None, *v), lambda *v: twin(None, *v),
+            _args(kernel, x))
+
+
+def _parts(out):
+    return out if isinstance(out, (tuple, list)) else (out,)
+
+
+def _same_bits(got, ref):
+    """Equal parts, bit for bit (NaN included)."""
+    got, ref = _parts(got), _parts(ref)
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        a, b = a.detach(), b.detach()
+        if a.is_floating_point():
+            bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+            a, b = a.view(bits), b.view(bits)
+        assert torch.equal(a, b)
+
+
+def _plain_uses(kernel):
+    return trace.counters().get(
+        "bdf.fold.plain" if kernel == "fold" else "massaction.plain", 0)
 
 
 def _dispatched(net):
@@ -231,66 +302,97 @@ def test_plain_path_on_the_cpu_is_the_twin(name, dtype):
     assert _launches() == dict.fromkeys(EPILOGUES + ("plain",), 0)
 
 
-def test_transforms_take_the_launch_and_the_twins_tangent(monkeypatch):
+@pytest.mark.parametrize("kernel", BRIDGED)
+def test_transforms_take_the_launch_and_the_twins_tangent(monkeypatch,
+                                                          kernel):
     """Rosenbrock's time partial is a jvp in t over the augmented
-    right-hand side, which slices y and Sens out of a captured block: the
+    right-hand side, which slices the inputs out of a captured block: the
     launch takes the call on unwrapped tensors and the output's tangent is
-    zero. A jvp in y takes the value from the launch and the tangent from
-    the twin; vmap over the inputs is refused before any launch."""
+    zero. A jvp in the inputs takes the value from the launch, into a
+    copy of what it writes, and the tangent from the twin with every
+    floating input dual, those not varied at zero: K5's D is varied and
+    its times are not, so member 1 meets the infinity of D in a zeroed
+    weight as NaN, where a twin with the times held fixed reads 0. vmap
+    over the inputs is refused before any launch."""
     launched = []
-    monkeypatch.setattr(massaction.MassActionNetwork, "_launch",
-                        _stand_in(launched))
-    net = NETWORKS["mapk22"]("cpu")
-    x = _inputs(net, 4, torch.float64, "cpu", 2)
-    plain = net.sens_rhs_plain()
-    Y = torch.cat([x["y"][..., None], x["sens"]], dim=-1)
-    t = torch.zeros(4, dtype=torch.float64)
+    fn, twin, xs = _bridged(monkeypatch, kernel, launched)
+    before = [v.clone() for v in xs]
+    ref = twin(*xs)
+    s = torch.zeros(3, dtype=torch.float64)
     trace.reset()
-    out, dt = torch.func.jvp(lambda tt: net._on_card(
-        "sens", plain, Y[..., 0], x["p"], Y[..., 1:]), (t,),
-        (torch.ones_like(t),))
-    assert launched == ["sens"] and not bool(dt.any())
-    assert torch.equal(out, plain(None, x["y"], x["sens"], x["p"]))
-    assert _launches()["plain"] == 0
-    v = torch.randn_like(x["y"])
-    out, tangent = torch.func.jvp(lambda yy: net._on_card(
-        "sens", plain, yy, x["p"], x["sens"]), (x["y"],), (v,))
-    ref, ref_tangent = torch.func.jvp(
-        lambda yy: plain(None, yy, x["sens"], x["p"]), (x["y"],), (v,))
-    assert launched == ["sens", "sens"] and _launches()["plain"] == 1
-    assert torch.equal(out, ref) and torch.equal(tangent, ref_tangent)
+
+    def sliced(ss):
+        v = [x[:] for x in xs]
+        assert not _unwrapped(*v)
+        return fn(*v)
+
+    out, dt = torch.func.jvp(sliced, (s,), (torch.ones_like(s),))
+    assert launched == [kernel] and _plain_uses(kernel) == 0
+    assert not any(bool(d.any()) for d in _parts(dt))
+    _same_bits(out, ref)
+    # vary y (K4) or the parts of D (K5)
+    at = [0] if kernel != "fold" else [2, 3]
+    tangents = [torch.randn_like(xs[i]) for i in at]
+
+    def varied(fn):
+        def f(*v):
+            w = list(xs)
+            for i, vi in zip(at, v):
+                w[i] = vi
+            return fn(*w)
+        return f
+
+    out, tangent = torch.func.jvp(varied(fn), tuple(xs[i] for i in at),
+                                  tuple(tangents))
+    assert launched == [kernel] * 2 and _plain_uses(kernel) == 1
+    dual = [i for i, x in enumerate(xs) if x.is_floating_point()]
+    ref_tangent = torch.func.jvp(
+        lambda *v: twin(*(v[dual.index(i)] if i in dual else x
+                          for i, x in enumerate(xs))),
+        tuple(xs[i] for i in dual),
+        tuple(tangents[at.index(i)] if i in at else torch.zeros_like(xs[i])
+              for i in dual))[1]
+    _same_bits(out, ref)
+    _same_bits(tangent, ref_tangent)
+    _same_bits(xs, before)
+    if kernel == "fold":
+        held = torch.func.jvp(varied(twin), tuple(xs[i] for i in at),
+                              tuple(tangents))[1]
+        assert bool(torch.isnan(tangent[1][1]).any())
+        assert not bool(torch.isnan(held[1][1]).any())
     with pytest.raises(RuntimeError, match="vmap"):
-        torch.func.vmap(lambda yy: net._on_card(
-            "jac", net.jac_plain(), yy[None], x["p"][:1]))(x["y"])
-    assert launched == ["sens", "sens"]
+        torch.func.vmap(lambda v: fn(v, *xs[1:]))(xs[0][None])
+    assert launched == [kernel] * 2
 
 
-@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("kernel", BRIDGED)
 def test_autograd_takes_the_value_of_the_launch_and_the_twins_gradient(
-        monkeypatch, epilogue):
+        monkeypatch, kernel):
     """Where autograd has to differentiate a call, the launch gives the
-    value and the plain twin's graph the gradient (counted as
-    ``massaction.plain``)."""
-    net = NETWORKS["egfr19"]("cpu")
-    twins = dict(zip(EPILOGUES, _plain(net)))
+    value, into a copy of what it writes, and the plain twin's graph the
+    gradient (one use counted as ``massaction.plain`` or
+    ``bdf.fold.plain``). K4's inputs all need a gradient; of K5's only the
+    first part of D, so its second part has none."""
     launched = []
-    monkeypatch.setattr(massaction.MassActionNetwork, "_launch",
-                        _stand_in(launched))
-    x = _inputs(net, 3, torch.float64, "cpu", 3)
-    args = [None if v is None else v.clone().requires_grad_(True)
-            for v in _args(epilogue, x)]
+    fn, twin, xs = _bridged(monkeypatch, kernel, launched)
+    grad_at = [2] if kernel == "fold" else range(len(xs))
+    args = [x.clone().requires_grad_(i in grad_at)
+            for i, x in enumerate(xs)]
+    leaves = [args[i] for i in grad_at]
     trace.reset()
-    got = net._on_card(epilogue, twins[epilogue], *args)
-    assert launched == [epilogue] and got.requires_grad
-    ref = massaction._twin_call(twins[epilogue], epilogue, *args)
-    torch.testing.assert_close(got, ref.detach(), rtol=0, atol=0)
-    w = torch.randn_like(got)
-    leaves = [v for v in args if v is not None]
-    g_got = torch.autograd.grad((got * w).sum(), leaves)
-    g_ref = torch.autograd.grad((ref * w).sum(), leaves)
-    for a, b in zip(g_got, g_ref):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert _launches()["plain"] == 1
+    got = fn(*args)
+    assert launched == [kernel]
+    assert all(o.requires_grad for o in _parts(got))
+    ref = twin(*args)
+    _same_bits(got, ref)
+    _same_bits(args, xs)
+    ws = [torch.randn_like(o) for o in _parts(got)]
+    g_got = torch.autograd.grad(
+        sum((o * w).sum() for o, w in zip(_parts(got), ws)), leaves)
+    g_ref = torch.autograd.grad(
+        sum((o * w).sum() for o, w in zip(_parts(ref), ws)), leaves)
+    _same_bits(g_got, g_ref)
+    assert _plain_uses(kernel) == 1
 
 
 # --------------------------------------------------------------------------
@@ -381,14 +483,10 @@ def test_kernel_gradient_is_the_twins(cuda_device, epilogue):
     gradient."""
     net = NETWORKS["mapk22"](cuda_device)
     x = _inputs(net, 64, torch.float64, cuda_device, 8)
-    args = [None if v is None else v.clone().requires_grad_(True)
-            for v in _args(epilogue, x)]
-    leaves = [v for v in args if v is not None]
+    leaves = [v.clone().requires_grad_(True) for v in _args(epilogue, x)]
     trace.reset()
-    got = _call(_dispatched(net), epilogue, dict(zip(
-        ("y", "p", "sens" if epilogue == "sens" else "sens_g", "C"), args)))
-    ref = massaction._twin_call(dict(zip(EPILOGUES, _plain(net)))[epilogue],
-                                epilogue, *args)
+    got = dict(zip(EPILOGUES, _dispatched(net)))[epilogue](None, *leaves)
+    ref = dict(zip(EPILOGUES, _plain(net)))[epilogue](None, *leaves)
     w = torch.randn_like(got)
     g_got = torch.autograd.grad((got * w).sum(), leaves)
     g_ref = torch.autograd.grad((ref * w).sum(), leaves)

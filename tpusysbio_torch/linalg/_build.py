@@ -42,7 +42,6 @@ _SIGNATURES = {
     "tsb_gj_inverse_major_f32": (_P, _P, _I, _I, _P),
     "tsb_gj_major_divide_check": (_P, _P, _P, _P, _I, _P),
     "tsb_refine_solve": (_P, _P, _P, _P, _I, _I, _P),
-    "tsb_launch_floor": (_I, _I, _P),
     "tsb_massaction_f32": (_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L,
                            _P, _I, _I, _P),
     "tsb_massaction_f64": (_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L,

@@ -54,15 +54,19 @@ REPS = 200
 
 def _load_other(root: Path):
     """The other tree's wrappers, launching the other tree's kernels."""
-    info = _build.compile_library(root / "tpusysbio_torch" / "linalg"
-                                  / "csrc")
+    linalg = root / "tpusysbio_torch" / "linalg"
+    info = _build.compile_library(linalg / "csrc")
     lib = _build.open_library(info["path"])
-    spec = importlib.util.spec_from_file_location(
-        "tpusysbio_torch_other_gpu_lu",
-        root / "tpusysbio_torch" / "linalg" / "gpu_lu.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod._build = types.SimpleNamespace(load=lambda: lib)
+    mod, seam = None, None
+    for name in ("kernels", "gpu_lu"):   # a tree may predate kernels.py
+        if (linalg / f"{name}.py").exists():
+            spec = importlib.util.spec_from_file_location(
+                f"tpusysbio_torch_other_{name}", linalg / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            seam = seam or mod   # the module that loads the library
+    seam._build = types.SimpleNamespace(load=lambda: lib)
+    mod.kernels = seam
     return mod, info
 
 

@@ -38,7 +38,7 @@ import os
 import torch
 
 from tpusysbio_torch import trace
-from tpusysbio_torch.linalg import _build
+from tpusysbio_torch.linalg import kernels
 
 MAX_KERNEL_N = 64
 _REFINE_MAX_N = 64
@@ -69,13 +69,6 @@ def _check_cuda(name, device, *specs):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor must be contiguous")
-
-
-def _stream(device):
-    """The handle of PyTorch's current stream on ``device``, read without
-    building a ``Stream`` object: the stepper calls a wrapper once per
-    factorization or Newton trip, so its host cost counts."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # --------------------------------------------------------------------------
@@ -133,11 +126,8 @@ def gj_inverse_f32(a: torch.Tensor) -> torch.Tensor:
     device = a.device
     _check_cuda(name, device, (a, torch.float32, (B, n, n)))
     out = torch.empty_like(a)
-    err = getattr(_build.load(), "tsb_" + name)(
-        a.data_ptr(), out.data_ptr(), B, n, _stream(device))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    trace.count("gpu_lu." + name)
+    kernels.launch("tsb_" + name, a.data_ptr(), out.data_ptr(), B, n,
+                   device=device, counter="gpu_lu." + name)
     trace.count(f"gpu_lu.{name}.n{n}")
     return out
 
@@ -247,12 +237,9 @@ def refine_solve(x32: torch.Tensor, a: torch.Tensor,
     _check_cuda("refine_solve", device, (x32, torch.float32, (B, n, n)),
                 (a, torch.float64, (B, n, n)), (b, torch.float64, (B, n)))
     y = torch.empty_like(b)
-    err = _build.load().tsb_refine_solve(
-        x32.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), B, n,
-        _stream(device))
-    if err != 0:
-        raise RuntimeError(f"refine_solve launch failed: cudaError {err}")
-    trace.count("gpu_lu.refine_solve")
+    kernels.launch("tsb_refine_solve", x32.data_ptr(), a.data_ptr(),
+                   b.data_ptr(), y.data_ptr(), B, n, device=device,
+                   counter="gpu_lu.refine_solve")
     return y
 
 

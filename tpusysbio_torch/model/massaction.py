@@ -27,7 +27,7 @@ concentrations. Where it is formed:
   fit a block's shared memory, ``vmap`` over its inputs) raises; under
   autograd or ``torch.func.jvp`` the kernel gives the value and, where an
   input carries a gradient or a tangent, the plain twin gives those,
-  counted as ``massaction.plain``;
+  counted as ``massaction.plain`` (``linalg/kernels.py``'s ``call``);
 - on the CPU the plain twins (``jac_plain`` and its siblings) build it
   from forward and backward cumulative products.
 """
@@ -35,25 +35,19 @@ concentrations. Where it is formed:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from tpusysbio_torch import trace
-from tpusysbio_torch.linalg import _build, gpu_lu
+from tpusysbio_torch.linalg import kernels
 
 # The kernel's epilogues, in the order of its epilogue codes.
 EPILOGUES = ("jac", "sens", "sens_dir")
 _TWINS = dict(jac="jac_plain", sens="sens_rhs_plain",
               sens_dir="sens_rhs_dir_plain")
 _TOO_LARGE = -1   # the kernel's code for member tiles that do not fit
-
-
-def _transform_active() -> bool:
-    """True inside a ``torch.func`` transform: there even a captured
-    tensor is wrapped once an operation touches it."""
-    return torch._C._functorch.peek_interpreter_stack() is not None
 
 
 def _plan(R: np.ndarray, S: np.ndarray) -> np.ndarray:
@@ -72,66 +66,6 @@ def _plan(R: np.ndarray, S: np.ndarray) -> np.ndarray:
     return np.concatenate([
         [n, rx, len(rj), len(sk)], rptr, rent, cptr, rj[by_col], by_col,
         sptr, sj, S[sk, sj], qptr, qk, S[qk, qj]]).astype(np.int32)
-
-
-def _twin_call(plain, epilogue, y, p, sens, C):
-    if epilogue == "jac":
-        return plain(None, y, p)
-    if epilogue == "sens":
-        return plain(None, y, sens, p)
-    return plain(None, y, sens, p, C)
-
-
-class _K4(torch.autograd.Function):
-    """K4 under autograd or a ``torch.func`` transform: the launch gives
-    the value (on the tensors under any transform's wrappers); gradients
-    and tangents, where an input has one, come from the plain twin (K4
-    computes no second derivatives), each such use counted as
-    ``massaction.plain``. ``vmap`` over the inputs is refused."""
-
-    @staticmethod
-    def forward(net, epilogue, plain, y, p, sens, C):
-        return net._launch(epilogue, y, p, sens, C)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        net, ctx.epilogue, ctx.plain, *xs = inputs
-        ctx.save_for_backward(*xs)
-        ctx.xs = xs
-
-    @staticmethod
-    def backward(ctx, grad):
-        need = ctx.needs_input_grad[3:]
-        trace.count("massaction.plain")
-        with torch.enable_grad():
-            xs = [None if x is None else x.detach().requires_grad_(w)
-                  for x, w in zip(ctx.saved_tensors, need)]
-            out = _twin_call(ctx.plain, ctx.epilogue, *xs)
-            grads = iter(torch.autograd.grad(
-                out, [x for x, w in zip(xs, need) if w], grad))
-        return (None, None, None) + tuple(next(grads) if w else None
-                                          for w in need)
-
-    @staticmethod
-    def jvp(ctx, _net, _epilogue, _plain, *tangents):
-        trace.count("massaction.plain")
-        at = [i for i, x in enumerate(ctx.xs) if x is not None]
-
-        def twin(*present):
-            xs = [None] * len(ctx.xs)
-            for i, x in zip(at, present):
-                xs[i] = x
-            return _twin_call(ctx.plain, ctx.epilogue, *xs)
-
-        return torch.func.jvp(twin, tuple(ctx.xs[i] for i in at), tuple(
-            torch.zeros_like(ctx.xs[i]) if tangents[i] is None
-            else tangents[i] for i in at))[1]
-
-    @staticmethod
-    def vmap(info, in_dims, net, epilogue, *args):
-        raise RuntimeError(
-            f"massaction.{epilogue}: K4 cannot run under vmap over its "
-            f"inputs; call the network's {_TWINS[epilogue]}() instead")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -232,17 +166,31 @@ class MassActionNetwork:
                                 len(words), int(words[2]), int(words[3]))
         return self._cache[key]
 
-    def _on_card(self, epilogue, plain, y, p, sens=None, C=None):
-        """``epilogue`` of K4 for CUDA inputs: one launch, through
-        :class:`_K4` inside a ``torch.func`` transform or where autograd
-        has to differentiate the call."""
-        if _transform_active() or (torch.is_grad_enabled() and any(
-                x is not None and x.requires_grad for x in (y, p, sens, C))):
-            return _K4.apply(self, epilogue, plain, y, p, sens, C)
-        return self._launch(epilogue, y, p, sens, C)
+    def _k4(self, epilogue, plain):
+        """``plain``'s function ``(t, y, ...)`` by K4's ``epilogue``
+        through :func:`kernels.call`: the twin on the CPU, one launch on
+        the card (``t`` is not read)."""
+        launch = functools.partial(self._launch, epilogue)
+        twin = functools.partial(plain, None)
+        message = (f"massaction.{epilogue}: K4 cannot run under vmap over "
+                   f"its inputs; call the network's {_TWINS[epilogue]}() "
+                   f"instead")
 
-    def _launch(self, epilogue, y, p, sens=None, C=None):
-        """One launch of K4's ``epilogue`` on ``y``'s device and dtype."""
+        def f(t, *xs):
+            return kernels.call(launch, twin, xs,
+                                plain_counter="massaction.plain",
+                                vmap_message=message)
+
+        return f
+
+    def _launch(self, epilogue, y, *xs):
+        """One launch of K4's ``epilogue`` on ``y``'s device and dtype;
+        ``xs`` are the arguments after ``y`` of the epilogue's function:
+        ``(p,)``, ``(Sens, p)`` or ``(Sens, p, C)``."""
+        if epilogue == "jac":
+            (p,), sens, C = xs, None, None
+        else:
+            sens, p, C = (*xs, None)[:3]
         dt = y.dtype
         if dt not in (torch.float32, torch.float64):
             raise TypeError(f"massaction.{epilogue}: K4 takes float32 or "
@@ -275,22 +223,18 @@ class MassActionNetwork:
             if C.ndim == 3:
                 c_stride = C.shape[1] * C.shape[2]
         words, n_words, nnz_r, nnz_s = self._plan_on(y.device)
-        fn = getattr(_build.load(), "tsb_massaction_f32" if dt ==
-                     torch.float32 else "tsb_massaction_f64")
-        err = fn(EPILOGUES.index(epilogue), words.data_ptr(), n_words, n,
-                 rx, nnz_r, nnz_s, y.data_ptr(), p.data_ptr(),
-                 0 if sens is None else sens.data_ptr(),
-                 0 if C is None else C.data_ptr(), c_stride,
-                 out.data_ptr(), B, m, gpu_lu._stream(y.device))
-        if err == _TOO_LARGE:
+        if kernels.launch(
+                "tsb_massaction_f32" if dt == torch.float32
+                else "tsb_massaction_f64", EPILOGUES.index(epilogue),
+                words.data_ptr(), n_words, n, rx, nnz_r, nnz_s, y.data_ptr(),
+                p.data_ptr(), 0 if sens is None else sens.data_ptr(),
+                0 if C is None else C.data_ptr(), c_stride, out.data_ptr(), B,
+                m, device=y.device, counter="massaction." + epilogue,
+                known=(_TOO_LARGE,)):
             raise RuntimeError(
                 f"massaction.{epilogue}: one member's tiles ({n} species, "
                 f"{rx} reactions, {nnz_r} reactant entries) do not fit a "
                 f"block's shared memory on {y.device}")
-        if err != 0:
-            raise RuntimeError(f"massaction.{epilogue} launch failed: "
-                               f"cudaError {err}")
-        trace.count("massaction." + epilogue)
         return out
 
     def jac_plain(self) -> Callable:
@@ -308,14 +252,7 @@ class MassActionNetwork:
     def jac(self) -> Callable:
         """Closed-form state Jacobian ``(t, y, p) -> (B, n, n)``: K4 on
         the card, :meth:`jac_plain` on the CPU."""
-        plain = self.jac_plain()
-
-        def j(t, y, p):
-            if y.device.type != "cuda":
-                return plain(t, y, p)
-            return self._on_card("jac", plain, y, p)
-
-        return j
+        return self._k4("jac", self.jac_plain())
 
     def sens_rhs_plain(self) -> Callable:
         """Plain twin of :meth:`sens_rhs`."""
@@ -334,14 +271,7 @@ class MassActionNetwork:
         """Closed-form forward-sensitivity RHS ``(t, y, Sens, p) ->
         (B, n, m)`` w.r.t. ALL rate constants (m = n_reactions): K4 on the
         card, :meth:`sens_rhs_plain` on the CPU."""
-        plain = self.sens_rhs_plain()
-
-        def fs(t, y, Sens, p):
-            if y.device.type != "cuda":
-                return plain(t, y, Sens, p)
-            return self._on_card("sens", plain, y, p, Sens)
-
-        return fs
+        return self._k4("sens", self.sens_rhs_plain())
 
     def sens_rhs_dir_plain(self) -> Callable:
         """Plain twin of :meth:`sens_rhs_dir`."""
@@ -360,14 +290,7 @@ class MassActionNetwork:
         """Reduced sensitivity RHS ``(t, y, Sens, p, C) -> (B, n, G)``
         along parameter directions ``C`` (B, m, G) or (m, G): K4 on the
         card, :meth:`sens_rhs_dir_plain` on the CPU."""
-        plain = self.sens_rhs_dir_plain()
-
-        def fs_dir(t, y, Sens, p, C):
-            if y.device.type != "cuda":
-                return plain(t, y, Sens, p, C)
-            return self._on_card("sens_dir", plain, y, p, Sens, C)
-
-        return fs_dir
+        return self._k4("sens_dir", self.sens_rhs_dir_plain())
 
     def rhs(self) -> Callable:
         """``f(t, y, p) -> dy/dt`` (B, n), p = rate constants (B, rx)."""

@@ -65,7 +65,7 @@ import torch
 
 from tpusysbio_torch import trace
 from tpusysbio_torch.config import SolverConfig
-from tpusysbio_torch.linalg import _build, gpu_lu, make_linear_solver
+from tpusysbio_torch.linalg import kernels, make_linear_solver
 from tpusysbio_torch.solvers import common
 from tpusysbio_torch.solvers.common import (
     STATUS_EVENT,
@@ -231,83 +231,14 @@ def _fold_launch(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new, order_new,
     t_old, t_hi, t_new, h_new, order_new, accept, running, too_small = (
         x.contiguous() for x in (t_old, t_hi, t_new, h_new, order_new,
                                  accept, running, too_small))
-    err = _build.load().tsb_dense_fold(
-        int(t_eval.dtype == torch.float64), B, T, n, t_eval.data_ptr(),
-        t_eval.stride(0), t_eval.stride(1), t_old.data_ptr(),
-        t_hi.data_ptr(), t_new.data_ptr(), h_new.data_ptr(),
+    kernels.launch(
+        "tsb_dense_fold", int(t_eval.dtype == torch.float64), B, T, n,
+        t_eval.data_ptr(), t_eval.stride(0), t_eval.stride(1),
+        t_old.data_ptr(), t_hi.data_ptr(), t_new.data_ptr(), h_new.data_ptr(),
         order_new.to(torch.int64).data_ptr(), accept.data_ptr(),
         running.data_ptr(), too_small.data_ptr(), rows, *parts,
-        gpu_lu._stream(t_eval.device))
-    if err != 0:
-        raise RuntimeError(f"dense_fold launch failed: cudaError {err}")
-    trace.count("bdf.fold")
+        device=t_eval.device, counter="bdf.fold")
     return ys_acc
-
-
-def _fold_twin(n_parts, dense_f32, *xs):
-    """:func:`dense_fold_plain` on :class:`_K5`'s flat inputs."""
-    return dense_fold_plain(xs[:n_parts], xs[n_parts:2 * n_parts],
-                            *xs[2 * n_parts:], dense_f32)
-
-
-class _K5(torch.autograd.Function):
-    """K5 under autograd or a ``torch.func`` transform: the launch gives
-    the value, into a copy of the accumulator; gradients and tangents
-    come from the plain twin (whole grid), each such use counted as
-    ``bdf.fold.plain``. A tangent is the twin's with every floating input
-    dual, those the transform did not vary at zero (a zero tangent meets
-    an infinity of ``D`` in a zeroed weight's term as NaN, at a point
-    whose value is NaN already). ``vmap`` over the inputs is refused.
-    Inputs are the parts of ``ys_acc``, then of ``D``, then the times and
-    flags."""
-
-    @staticmethod
-    def forward(n_parts, dense_f32, *xs):
-        return _fold_launch(tuple(a.clone() for a in xs[:n_parts]),
-                            xs[n_parts:2 * n_parts], *xs[2 * n_parts:],
-                            dense_f32)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.n_parts, ctx.dense_f32, *xs = inputs
-        ctx.save_for_backward(*xs)
-        ctx.xs = xs
-
-    @staticmethod
-    def backward(ctx, *grads):
-        need = ctx.needs_input_grad[2:]
-        trace.count("bdf.fold.plain")
-        with torch.enable_grad():
-            xs = [x.detach().requires_grad_(w)
-                  for x, w in zip(ctx.saved_tensors, need)]
-            # a part whose inputs need no gradient gives none
-            out = [(o, g) for o, g in zip(
-                _fold_twin(ctx.n_parts, ctx.dense_f32, *xs), grads)
-                if o.requires_grad]
-            got = iter(torch.autograd.grad(
-                [o for o, _ in out], [x for x, w in zip(xs, need) if w],
-                [g for _, g in out], allow_unused=True))
-        return (None, None) + tuple(next(got) if w else None for w in need)
-
-    @staticmethod
-    def jvp(ctx, _n_parts, _dense_f32, *tangents):
-        trace.count("bdf.fold.plain")
-        at = [i for i, x in enumerate(ctx.xs) if x.is_floating_point()]
-
-        def twin(*floats):
-            xs = list(ctx.xs)
-            for i, x in zip(at, floats):
-                xs[i] = x
-            return _fold_twin(ctx.n_parts, ctx.dense_f32, *xs)
-
-        return torch.func.jvp(twin, tuple(ctx.xs[i] for i in at), tuple(
-            torch.zeros_like(ctx.xs[i]) if tangents[i] is None
-            else tangents[i] for i in at))[1]
-
-    @staticmethod
-    def vmap(info, in_dims, *args):
-        raise RuntimeError("dense_fold: K5 cannot run under vmap over its "
-                           "inputs; call dense_fold_plain instead")
 
 
 def dense_fold(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new, order_new,
@@ -328,21 +259,25 @@ def dense_fold(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new, order_new,
     over every part, which writes only those points and counts
     ``bdf.fold``; parts or times it has no code for raise. Inside a
     ``torch.func`` transform, or where autograd has to differentiate the
-    call, the launch still gives the value and the twin the derivatives
-    (:class:`_K5`). On the CPU the plain twin, :func:`dense_fold_plain`,
-    runs."""
-    if not ys_acc[0].is_cuda:
-        return dense_fold_plain(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new,
-                                order_new, accept, running, too_small,
-                                dense_f32, window)
-    xs = (*ys_acc, *D, t_eval, t_old, t_hi, t_new, h_new, order_new, accept,
-          running, too_small)
-    if (torch._C._functorch.peek_interpreter_stack() is not None
-            or (torch.is_grad_enabled() and any(x.requires_grad
-                                                for x in xs))):
-        return _K5.apply(len(D), dense_f32, *xs)
-    return _fold_launch(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new,
-                        order_new, accept, running, too_small, dense_f32)
+    call, the launch still gives the value, into a copy of the
+    accumulator, and the twin the derivatives, counted as
+    ``bdf.fold.plain`` (``linalg/kernels.py``'s ``call``). On the CPU the
+    plain twin, :func:`dense_fold_plain`, runs."""
+    k = len(D)
+
+    def launch(*xs):
+        return _fold_launch(xs[:k], xs[k:2 * k], *xs[2 * k:], dense_f32)
+
+    def twin(*xs):
+        return dense_fold_plain(xs[:k], xs[k:2 * k], *xs[2 * k:], dense_f32,
+                                window)
+
+    return kernels.call(
+        launch, twin, (*ys_acc, *D, t_eval, t_old, t_hi, t_new, h_new,
+                       order_new, accept, running, too_small),
+        plain_counter="bdf.fold.plain", writes=k,
+        vmap_message="dense_fold: K5 cannot run under vmap over its inputs; "
+        "call dense_fold_plain instead")
 
 
 @trace.spanned("bdf.solve")
@@ -713,12 +648,11 @@ def bdf_solve(
             # --- order/step adaptation once n_equal > order ---
             n_equal_acc = n_equal_steps + 1
             do_adapt = accept & (n_equal_acc >= order + 1)
-            bi = torch.arange(B, device=dev)
             ec_m = error_const[torch.clamp(order - 1, min=0)].to(pdt)
             ec_p = error_const[torch.clamp(order + 1, max=MAX_ORDER)].to(pdt)
             # D_acc[order] = D[order] + d;  D_acc[order+2] = d - D[order+1]
-            err_m = bcast(ec_m, d0) * (D0[bi, order] + d0)
-            err_p = bcast(ec_p, d0) * (d0 - D0[bi, order + 1])
+            err_m = bcast(ec_m, d0) * (D0[bi_all, order] + d0)
+            err_p = bcast(ec_p, d0) * (d0 - D0[bi_all, order + 1])
             if scale_full is not None:
                 em = rms_norm(err_m / scale_full).to(dtype)
                 ep = rms_norm(err_p / scale_full).to(dtype)
@@ -920,12 +854,9 @@ def bdf_solve(
             running = trace.read(
                 (st["status"] == STATUS_RUNNING).any(), "bdf.reads")
 
-    if split:
-        ys = st["ys_acc"][0][..., 0]
-        sens = st["ys_acc"][1].to(dtype)
-    else:
-        ys = st["ys_acc"][0][..., 0]
-        sens = st["ys_acc"][0][..., 1:]
+    ys = st["ys_acc"][0][..., 0]
+    sens = (st["ys_acc"][1].to(dtype) if split
+            else st["ys_acc"][0][..., 1:])
     y_final = torch.cat([Dp[:, 0].to(dtype) for Dp in st["D"]], dim=-1)
     extra = {}
     if events is not None:

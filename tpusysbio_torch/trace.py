@@ -3,13 +3,12 @@
 Counters are always on: ``count(name, k)`` adds to a dict, and
 ``counters()`` returns a copy of it. The port counts each host read of a
 device value (``<layer>.reads``), the BDF stepper's trips (``bdf.trips``)
-and every launch of a hand-written kernel (``gpu_lu.<kernel>`` and, for
-the Gauss-Jordan kernels, ``gpu_lu.<kernel>.n<n>`` by matrix size; the
-mass-action kernel's ``massaction.<epilogue>``, and ``massaction.plain``
-for a launch whose gradient autograd took through the plain twin; the
-BDF stepper's dense-output fold ``bdf.fold``, one a trip, and
-``bdf.fold.plain`` for a fold whose gradient or tangent its plain twin
-took).
+and every launch of a hand-written kernel (``linalg/kernels.py``:
+``gpu_lu.<kernel>`` and, for the Gauss-Jordan kernels,
+``gpu_lu.<kernel>.n<n>`` by matrix size; the mass-action kernel's
+``massaction.<epilogue>``; the BDF stepper's dense-output fold
+``bdf.fold``, one a trip), and ``massaction.plain`` or ``bdf.fold.plain``
+for each gradient or tangent of such a call that the plain twin gave.
 The forward-mode AD derivatives of a model without closed-form ones count
 their jvps (``ad.jvps``): n for a state Jacobian
 (``solvers/common.py::batched_jacobian``, span ``ad.jac``), one a column
