@@ -38,8 +38,14 @@ first failed check:
    the BDF stepper's dense-output fold (``csrc/dense_fold.cu``) against
    its plain twin, bit for bit, on MAPK-22's split parts and 41-point
    grid at B = 256, 1,024 and 10,000, one launch a call, timed beside the
-   twin and the bytes it touches; every path below that runs the BDF
-   stepper must launch it and never take its twin (``bdf.fold.plain``);
+   twin and the bytes it touches; then ``[K6]``, the BDF stepper's step
+   controller (``csrc/step_control.cu``) against its plain twin (the same
+   decisions, the step and D within 4 ulps, a gated member's D bit for
+   bit, every branch taken) at the same shapes, timed the same way, and
+   at the fit screen's layout (one f32 part under an f64 control) and
+   under an f32 control at B = 256; every path below that runs the BDF stepper on the card must
+   launch K5 and K6 once a trip there and never take their twins
+   (``bdf.fold.plain``, ``bdf.ctrl.plain``);
 6. the main path of the first slice: the ``bench.py`` contract (MAPK-22,
    BDF with all 30 forward sensitivities, rtol=1e-6, atol=1e-9,
    ``sens_precision='f32'``, ``dense_f32``, ``linear_solver='pallas'``,
@@ -1058,6 +1064,201 @@ def phase_k5(rng):
         small_n={}, library_ms=None, cases=[row])
 
 
+K6_BATCHES = K5_BATCHES
+K6_STEP = dict(safety=0.9, min_factor=0.2, max_factor=10.0)
+# name -> (control dtype, parts as (columns, dtype), rtol, atol, batches):
+# the sens cells' and the polish's split parts, timed at K6_BATCHES;
+# mapk22-fit's mixed-precision screen (one f32 part under an f64
+# control); the same part under an f32 control
+K6_LAYOUTS = {"split": ("float64", ((1, "float64"), (30, "float32")), 1e-6,
+                        1e-9, K6_BATCHES),
+              "screen": ("float64", ((31, "float32"),), 1e-3, 1e-6,
+                         (BATCH,)),
+              "f32": ("float32", ((31, "float32"),), 1e-3, 1e-6, (BATCH,))}
+
+
+def k6_inputs(rng, B, layout):
+    """K6's inputs for MAPK-22 (22 species) in one of ``K6_LAYOUTS``: rows
+    of D that shrink as a stepper's do, ``D_old`` those rows before a
+    rescaling by a factor of each member's own, corrections from a
+    thousandth of the tolerance to 16 times it (most steps accepted, one
+    in ten or so rejected), random orders and counts; one member in ten
+    whose Newton loop failed, with a fresh Jacobian (``current_jac``, the
+    halving) or a stale one; one in twenty not running and one in thirty
+    whose step underflowed, which keep ``D_old``'s rows."""
+    import torch
+
+    from tpusysbio_torch.solvers import bdf
+
+    ct, parts, rtol, atol, _ = K6_LAYOUTS[layout]
+    ct = getattr(torch, ct)
+    n, rows = 22, np.arange(bdf.D_ROWS)
+    shrink = torch.as_tensor(1e-2 ** rows)[None, :, None, None]
+    rescale = torch.as_tensor(rng.uniform(0.5, 2.0, (B, 1)) ** rows)[
+        :, :, None, None]
+    size = torch.as_tensor(rtol * 10.0 ** rng.uniform(-3.0, 1.2,
+                                                      (B, 1, 1)))
+
+    def part(k, dtype):
+        D = torch.as_tensor(rng.standard_normal((B, bdf.D_ROWS, n, k))) \
+            * shrink
+        D[:, 0] = torch.as_tensor(rng.random((B, n, k))) + 0.5
+        d = size * torch.as_tensor(rng.standard_normal((B, n, k)))
+        dtype = getattr(torch, dtype)
+        return tuple(a.to(dtype).cuda() for a in (D, D * rescale, d))
+
+    D, D_old, d = zip(*(part(k, dtype) for k, dtype in parts))
+
+    def ints(lo, hi, dtype):
+        return torch.as_tensor(rng.integers(lo, hi, B), dtype=dtype,
+                               device="cuda")
+
+    def share(p):
+        return torch.as_tensor(rng.random(B) < p, device="cuda")
+
+    _, _, error_const = bdf._ndf_constants(ct, "cuda")
+    t = torch.as_tensor(rng.uniform(0.0, 90.0, B), device="cuda").to(ct)
+    h = torch.as_tensor(10.0 ** rng.uniform(-3.0, 0.5, B),
+                        device="cuda").to(ct)
+    return dict(d=d, D=D, D_old=D_old, Y0=D[0][:, 0] + d[0],
+                order=ints(1, 6, torch.int64), n_iter=ints(1, 5, torch.int32),
+                n_equal_steps=ints(0, 7, torch.int32),
+                converged=~share(0.1), current_jac=share(0.3), h_abs=h, t=t,
+                t_new=t + h, running=~share(0.05), too_small=share(1 / 30),
+                error_const=error_const,
+                opts=dict(K6_STEP, rtol=rtol, atol=atol,
+                          sens_error_control=False))
+
+
+def k6_bound(x):
+    """Bytes K6 touches once over HBM: each part's 8 rows of D and d read
+    and 8 rows of D_new written, the state column of the corrected block
+    read, and each member's scalars in and out (76 bytes); no operation
+    count (9 multiply-adds an output element)."""
+    B, _, n = x["D"][0].shape[:3]
+    per_member = sum(n * Dp.shape[-1] * Dp.element_size() * (8 + 1 + 8)
+                     for Dp in x["D"])
+    per_member += n * x["Y0"].element_size() + 76
+    return bound_ms(B * per_member, 0.0)
+
+
+def k6_call(x, fn):
+    return fn(x["d"], x["D"], x["D_old"], *(x[k] for k in (
+        "Y0", "order", "n_iter", "n_equal_steps", "converged", "current_jac",
+        "h_abs", "t", "t_new", "running", "too_small", "error_const")),
+        **x["opts"])
+
+
+def k6_compare(x, got, ref, tag):
+    """K6's outputs ``got`` against the twin's ``ref`` on inputs ``x``:
+    the decisions equal; ``h_new`` and ``t_next`` within 4 ulps; each
+    running member's rows of D_new within 4 ulps of the row's largest
+    entry; a gated member's rows ``D_old``'s, bit for bit. Every branch
+    must be taken: an accepted step, an error-test rejection, both Newton
+    failures, a gated member. Returns the largest error and its ulps."""
+    import torch
+
+    k = len(x["D"])
+    accept, reject = ref[k], ref[k + 1]
+    failed = ~x["converged"]
+    gate = x["running"] & ~x["too_small"]
+    taken = {"accepted": accept & gate, "rejected": reject & gate,
+             "stale Jacobian": failed & ~x["current_jac"] & gate,
+             "fresh Jacobian": failed & x["current_jac"] & gate,
+             "gated": ~gate}
+    taken = {name: int(m.sum()) for name, m in taken.items()}
+    check(all(taken.values()), f"K6 {tag}: a branch is not taken: {taken}")
+    check(all(torch.equal(got[k + i], ref[k + i])
+              for i in (0, 1, 2, 5, 6, 7)),
+          f"K6 {tag}: decisions differ from the plain twin")
+
+    def bits(a):
+        return a.view(torch.int64 if a.dtype == torch.float64
+                      else torch.int32)
+
+    check(all(torch.equal(bits(a[~gate]), bits(Do[~gate]))
+              and torch.equal(bits(a[~gate]), bits(r[~gate]))
+              for a, r, Do in zip(got[:k], ref[:k], x["D_old"])),
+          f"K6 {tag}: a gated member's rows are not D_old's")
+    ulps, err = 0.0, 0.0
+    pairs = [(a[gate], r[gate]) for a, r in zip(got[:k], ref[:k])]
+    for a, r in pairs + [(got[k + 3], ref[k + 3]), (got[k + 4], ref[k + 4])]:
+        top = r.abs().flatten(2).amax(2) if r.ndim > 2 else r.abs()
+        top = top.reshape(top.shape + (1,) * (r.ndim - top.ndim))
+        spacing = torch.nextafter(top, torch.full_like(top, np.inf)) - top
+        ulps = max(ulps, float(((a - r).abs() / spacing).max()))
+        err = max(err, float((a - r).abs().max()))
+    check(ulps <= 4.0, f"K6 {tag}: {ulps:.2f} ulps from the plain twin")
+    return err, ulps, taken
+
+
+def phase_k6(rng):
+    """K6 (the BDF stepper's step controller, ``csrc/step_control.cu``)
+    against its plain twin, one launch a call, in each of ``K6_LAYOUTS``
+    (as ``k6_compare`` holds it), and timed at MAPK-22's split parts from
+    the queue and at the host's pace beside the twin and the bytes it
+    touches. Returns the kernel's entry of the ``kernels`` line."""
+    import torch
+
+    from tpusysbio_torch import trace
+    from tpusysbio_torch.solvers import bdf
+
+    row = dict(ms_by_batch={}, host_paced_ms_by_batch={},
+               plain_ms_by_batch={}, bound_ms_by_batch={},
+               max_abs_err_by_batch={}, max_ulps_by_batch={})
+    errs = {}
+    for layout, (*_, batches) in K6_LAYOUTS.items():
+        for B in batches:
+            tag = f"B={B}" if layout == "split" else f"{layout} B={B}"
+            x = k6_inputs(rng, B, layout)
+            ref = k6_call(x, bdf.step_control_plain)
+            trace.reset()
+            got = k6_call(x, bdf.step_control)
+            torch.cuda.synchronize()
+            launched = trace.counters()
+            check(launched == {"bdf.ctrl": 1},
+                  f"K6 {tag}: launches {launched}")
+            err, ulps, taken = k6_compare(x, got, ref, tag)
+            errs[tag] = err
+            print(f"[K6] {tag}: {taken}; max abs err vs plain {err:.3e} "
+                  f"({ulps:.2f} ulps)", flush=True)
+            if layout != "split":
+                continue
+
+            def call(x=x):
+                k6_call(x, bdf.step_control)
+
+            def twin(x=x):
+                k6_call(x, bdf.step_control_plain)
+
+            bound, by = k6_bound(x)
+            row["max_abs_err_by_batch"][B] = err
+            row["max_ulps_by_batch"][B] = ulps
+            row["ms_by_batch"][B] = cuda_ms(call, reps=200)
+            row["host_paced_ms_by_batch"][B] = cuda_ms(call, reps=200,
+                                                       queued=False)
+            row["plain_ms_by_batch"][B] = cuda_ms(twin, reps=20)
+            row["bound_ms_by_batch"][B] = bound
+            print(f"[K6] B={B}: kernel {row['ms_by_batch'][B]:.4f} ms from "
+                  f"the queue, {row['host_paced_ms_by_batch'][B]:.4f} ms at "
+                  f"the host's pace; plain {row['plain_ms_by_batch'][B]:.4f}"
+                  f" ms; bound {bound:.6f} ms ({by})", flush=True)
+            del x, ref, got
+            torch.cuda.empty_cache()
+    return dict(
+        name="bdf.ctrl", route="cuda",
+        source="tpusysbio_torch/linalg/csrc/step_control.cu",
+        replaces="none (tpusysbio_torch/solvers/bdf.py's step controller "
+                 "and settle's where on D)",
+        ms=row["ms_by_batch"][BATCH], ms_by_batch=row["ms_by_batch"],
+        host_paced_ms_by_batch=row["host_paced_ms_by_batch"],
+        plain_ms=row["plain_ms_by_batch"][BATCH],
+        bound_ms=row["bound_ms_by_batch"][BATCH], bound_by="bytes",
+        max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
+        ms_by_shape={}, bound_ms_by_shape={}, library_ms_by_shape={},
+        small_n={}, library_ms=None, cases=[row])
+
+
 def phase_main_path():
     import torch
 
@@ -1471,6 +1672,7 @@ def reset_counters():
 K4_COUNTERS = ("massaction.jac", "massaction.sens", "massaction.sens_dir",
                "massaction.plain")
 K5_COUNTERS = ("bdf.fold", "bdf.fold.plain", "bdf.trips")
+K6_COUNTERS = ("bdf.ctrl", "bdf.ctrl.plain")
 
 
 def kernel_launches():
@@ -1479,13 +1681,15 @@ def kernel_launches():
     (``massaction``), and ``massaction.plain``, the K4 calls whose
     gradient autograd took through the plain twin; K5's (``bdf.fold``),
     the folds whose derivatives its plain twin took (``bdf.fold.plain``) and
-    the BDF trips they go with (``bdf.trips``)."""
+    the BDF trips they go with (``bdf.trips``); K6's (``bdf.ctrl``) and the
+    step controls whose derivatives its twin took (``bdf.ctrl.plain``)."""
     from tpusysbio_torch import trace
     from tpusysbio_torch.linalg import gpu_lu
 
     counts = trace.counters()
     out = {k: counts.get("gpu_lu." + k, 0) for k in gpu_lu.KERNELS}
-    out.update({k: counts.get(k, 0) for k in K4_COUNTERS + K5_COUNTERS})
+    out.update({k: counts.get(k, 0)
+                for k in K4_COUNTERS + K5_COUNTERS + K6_COUNTERS})
     out["massaction"] = sum(out[k] for k in K4_COUNTERS[:3])
     return out
 
@@ -4901,7 +5105,8 @@ def main():
                phase_k3(model, rng)]
     k4 = phase_k4(rng)
     k5 = phase_k5(rng)
-    laps("K1, K2, K3, K4, K5")
+    k6 = phase_k6(rng)
+    laps("K1, K2, K3, K4, K5, K6")
     with tempfile.TemporaryDirectory() as group_dir:
         group_launches = os.path.join(group_dir, "launches.json")
         group = start_cli_group(group_launches)
@@ -4981,7 +5186,7 @@ def main():
         kern["bound_ms_by_shape"][shape] = got["bound_ms"]
         kern["library_ms_by_shape"][shape] = got["library_ms"]
         kern["max_abs_err_by_case"]["n44 radau"] = got["max_abs_err"]
-    kernels += [k4, k5]
+    kernels += [k4, k5, k6]
     paths = {"main": l_main, "fit": l_fit, "fit-major": l_major,
              "egfr-sens": l_egfr_sens, "egfr-fit": l_egfr_fit,
              "egfr-major": l_egfr_major, **l_small}
@@ -4991,9 +5196,16 @@ def main():
         check(l["bdf.fold.plain"] == 0
               and (l["bdf.fold"] > 0 or l["bdf.trips"] == 0),
               f"{path}: the BDF trips' dense output did not take K5: {l}")
+        # a card trip launches K5 and K6 once each; a path's CPU solves
+        # (its references) count trips and launch nothing
+        check(l["bdf.ctrl.plain"] == 0 and l["bdf.ctrl"] == l["bdf.fold"],
+              f"{path}: the BDF trips' step control did not take K6: {l}")
     fold_paths = {p: f"{l['bdf.fold']}/{l['bdf.trips']}"
                   for p, l in paths.items() if l["bdf.trips"]}
     print(f"[K5] launches / BDF trips by path: {fold_paths}", flush=True)
+    ctrl_paths = {p: f"{l['bdf.ctrl']}/{l['bdf.trips']}"
+                  for p, l in paths.items() if l["bdf.trips"]}
+    print(f"[K6] launches / BDF trips by path: {ctrl_paths}", flush=True)
     for kern in kernels:
         name = kern["name"]
         by_path = {"main": l_main[name], "fit": l_fit[name],

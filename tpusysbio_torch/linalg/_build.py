@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (``linalg/csrc/*.cu``: the
 Newton kernels of ``gpu_lu``, the mass-action derivatives of
-``model/massaction.py`` and the BDF stepper's dense-output fold of
-``solvers/bdf.py``).
+``model/massaction.py`` and the BDF stepper's dense-output fold and step
+controller of ``solvers/bdf.py``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a plain
@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C entry points: name -> argument types; each returns a cudaError_t.
 _SIGNATURES = {
     "tsb_gj_inverse_f32": (_P, _P, _I, _I, _P),
@@ -48,6 +49,10 @@ _SIGNATURES = {
                            _P, _I, _I, _P),
     "tsb_dense_fold": (_I, _I, _I, _I, _P, _L, _L, _P, _P, _P, _P, _P, _P,
                        _P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P),
+    "tsb_step_control": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _D, _D, _D, _D, _D, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                         _P, _P, _P),
 }
 
 _lib = None

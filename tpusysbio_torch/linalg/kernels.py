@@ -1,6 +1,6 @@
 """The one route from the port to its hand-written CUDA kernels
 (``linalg/csrc``): :func:`launch` for every launch, :func:`call` for the
-kernels whose callers may take derivatives (K4, K5), with the plain twin
+kernels whose callers may take derivatives (K4, K5, K6), with the plain twin
 on the CPU and, on the card, for the derivatives (:class:`_Bridge`)."""
 
 from __future__ import annotations
@@ -103,9 +103,15 @@ class _Bridge(torch.autograd.Function):
                 xs[i] = x
             return ctx.twin(*xs)
 
-        return torch.func.jvp(twin, tuple(ctx.xs[i] for i in at), tuple(
-            torch.zeros_like(ctx.xs[i]) if tangents[i] is None
-            else tangents[i] for i in at))[1]
+        outs, out_tangents = torch.func.jvp(
+            twin, tuple(ctx.xs[i] for i in at), tuple(
+                torch.zeros_like(ctx.xs[i]) if tangents[i] is None
+                else tangents[i] for i in at))
+        if not isinstance(outs, tuple):
+            return out_tangents
+        # an integer or bool output (a flag, a count) has no tangent
+        return tuple(t if o.is_floating_point() else None
+                     for o, t in zip(outs, out_tangents))
 
     @staticmethod
     def vmap(info, in_dims, launch_fn, twin_fn, counter, message, *rest):

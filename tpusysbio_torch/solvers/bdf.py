@@ -37,7 +37,10 @@ floats or (B,) tensors, ``t_eval`` is (T,) or (B, T). Each trip folds its
 step's interpolant into the ``t_eval`` accumulator with :func:`dense_fold`:
 on the card one launch of the hand-written kernel K5
 (``linalg/csrc/dense_fold.cu``) writes only the points the step covers;
-on the CPU its plain twin evaluates the grid and keeps those points.
+on the CPU its plain twin evaluates the grid and keeps those points. The
+step controller after the Newton loop (error test, order and step choice,
+the update of ``D``) is :func:`step_control`: on the card one launch of
+K6 (``linalg/csrc/step_control.cu``), on the CPU its plain twin.
 
 Channels beside ``t_eval``:
 
@@ -105,12 +108,27 @@ def _compute_R(factor):
     return torch.cumprod(m, dim=1)
 
 
-def _padded_transform(h_factor, order):
+def _ordered_bmm(a, b):
+    """``a @ b`` for (B, I, K) and (B, K, J), the terms added to zero in
+    order k = 0, 1, ... with each product and each sum rounded on its own.
+    On the operands the step controller forms (6 x 6 factors; 8 x 8 and
+    8 x 1 products whose right factor holds only 0 and ±1) that is the
+    CPU's ``matmul``, bit for bit, and K6 repeats it on the card, where
+    cuBLAS's order changes with the batch."""
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=a.dtype,
+                      device=a.device)
+    for k in range(a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., k:k + 1, :]
+    return out
+
+
+def _padded_transform(h_factor, order, product=torch.matmul):
     """change_D's map as a (B, D_ROWS, D_ROWS) matrix ``T`` with
     ``D_new[i] = Σ_j T[i, j] D[j]``: ``(R(f) R(1))ᵀ`` on the leading
-    (order+1)² block, identity outside. In ``h_factor``'s dtype."""
+    (order+1)² block, identity outside. In ``h_factor``'s dtype; the
+    product of the two R by ``product``."""
     B = h_factor.shape[0]
-    P = _compute_R(h_factor) @ _compute_R(torch.ones_like(h_factor))
+    P = product(_compute_R(h_factor), _compute_R(torch.ones_like(h_factor)))
     rows = torch.arange(D_ROWS, device=h_factor.device)
     i, j = rows[:, None], rows[None, :]
     eye = (i == j).to(h_factor.dtype)
@@ -278,6 +296,247 @@ def dense_fold(ys_acc, D, t_eval, t_old, t_hi, t_new, h_new, order_new,
         plain_counter="bdf.fold.plain", writes=k,
         vmap_message="dense_fold: K5 cannot run under vmap over its inputs; "
         "call dense_fold_plain instead")
+
+
+def step_control_plain(d, D, D_old, Y0, order, n_iter, n_equal_steps,
+                       converged, current_jac, h_abs, t, t_new, running,
+                       too_small, error_const, *, rtol, atol, safety,
+                       min_factor, max_factor, sens_error_control):
+    """Plain twin of K6 (:func:`step_control`): the error test, the order
+    and step choice and the difference-array update of one step attempt,
+    as PyTorch ops."""
+    dtype = h_abs.dtype
+    dev = h_abs.device
+    kw = dict(dtype=dtype, device=dev)
+    eps = torch.finfo(dtype).eps
+    one = torch.ones((), **kw)
+    inf = torch.tensor(float("inf"), **kw)
+    rows = torch.arange(D_ROWS, device=dev)
+    bi_all = torch.arange(order.shape[0], device=dev)
+    orderf = order.to(dtype)
+    # B: Newton failed with a stale J; C: Newton failed with a fresh J
+    case_B = ~converged & ~current_jac
+    case_C = ~converged & current_jac
+
+    safety = (safety * (2 * NEWTON_MAXITER + 1)
+              / (2 * NEWTON_MAXITER + n_iter.to(dtype)))
+    scale_new = atol + rtol * torch.abs(Y0[..., 0])
+    d0, D0 = d[0], D[0]
+    pdt = D0.dtype
+    err = bcast(error_const[order].to(pdt), d0) * d0
+    if sens_error_control:
+        scale_full = atol + rtol * torch.abs(Y0)
+        error_norm = rms_norm(err / scale_full).to(dtype)
+    else:
+        scale_full = None
+        error_norm = rms_norm(err[..., 0] / scale_new).to(dtype)
+    # NaN compares false and would ACCEPT a garbage step
+    bad_err = ~torch.isfinite(error_norm)
+    error_norm = torch.where(bad_err, 2.0 * one, error_norm)
+    reject = converged & ((error_norm > 1.0) | bad_err)
+    accept = converged & ~reject
+
+    # --- order/step adaptation once n_equal > order ---
+    n_equal_acc = n_equal_steps + 1
+    do_adapt = accept & (n_equal_acc >= order + 1)
+    ec_m = error_const[torch.clamp(order - 1, min=0)].to(pdt)
+    ec_p = error_const[torch.clamp(order + 1, max=MAX_ORDER)].to(pdt)
+    # D_acc[order] = D[order] + d;  D_acc[order+2] = d - D[order+1]
+    err_m = bcast(ec_m, d0) * (D0[bi_all, order] + d0)
+    err_p = bcast(ec_p, d0) * (d0 - D0[bi_all, order + 1])
+    if scale_full is not None:
+        em = rms_norm(err_m / scale_full).to(dtype)
+        ep = rms_norm(err_p / scale_full).to(dtype)
+    else:
+        em = rms_norm(err_m[..., 0] / scale_new).to(dtype)
+        ep = rms_norm(err_p[..., 0] / scale_new).to(dtype)
+    err_m_norm = torch.where(order > 1, em, inf)
+    err_p_norm = torch.where(order < MAX_ORDER, ep, inf)
+    error_norms = torch.stack([err_m_norm, error_norm, err_p_norm], 1)
+    exponents = -1.0 / (orderf[:, None] + torch.arange(3, **kw)[None, :])
+    finite_norm = torch.isfinite(error_norms)
+    safe_norms = torch.where(finite_norm,
+                             torch.clamp(error_norms, min=eps), one)
+    factors = torch.where(finite_norm, safe_norms ** exponents, 0.0 * one)
+    best = torch.argmax(factors, dim=1)
+    order_adapt = torch.clamp(order + best - 1, 1, MAX_ORDER)
+    factor_adapt = torch.clamp(safety * torch.amax(factors, dim=1),
+                               max=max_factor)
+
+    factor_rej = torch.clamp(
+        safety * error_norm ** (-1.0 / (orderf + 1.0)), min=min_factor)
+    h_factor = torch.where(
+        case_C, 0.5 * one,
+        torch.where(reject, factor_rej,
+                    torch.where(do_adapt, factor_adapt, one)))
+    change = case_C | reject | do_adapt
+    order_new = torch.where(do_adapt, order_adapt, order)
+
+    # Compose (change_D rescale ∘ accept update) into one (D_ROWS,
+    # D_ROWS) map W and a rank-one weight v per member:
+    # D_new = W @ D + v ⊗ d. The accept update (append d at rows
+    # order+1/order+2, then the downward telescoping sweep) is
+    #   rows i<=order:  Σ_{j=i}^{order} D[j] + d
+    #   row order+1:    d
+    #   row order+2:    d - D[order+1]
+    #   rows above:     identity
+    ri, rj = rows[:, None], rows[None, :]
+    o = order[:, None, None]
+    eyeD = (ri == rj).to(dtype)
+    acc_M = torch.where(
+        ri <= o, ((rj >= ri) & (rj <= o)).to(dtype),
+        torch.where(ri == o + 2, -(rj == o + 1).to(dtype),
+                    ((ri == rj) & (ri > o + 2)).to(dtype)))
+    acc_u = (rows[None, :] <= order[:, None] + 2).to(dtype)
+    Ma = torch.where(accept[:, None, None], acc_M, eyeD)
+    ua = torch.where(accept[:, None], acc_u, 0.0 * one)
+    Tc = torch.where(change[:, None, None],
+                     _padded_transform(h_factor, order_new, _ordered_bmm),
+                     eyeD)
+    W = _ordered_bmm(Tc, Ma)
+    v = _ordered_bmm(Tc, ua[:, :, None])[:, :, 0]
+    # a member that is not running, or whose step underflowed, keeps the
+    # rows it began the attempt with (the gate settle applies to the rest
+    # of the state)
+    gate = running & ~too_small
+    D_new = tuple(where_members(gate, _wsum(W, Dp)
+                                + bcast(v.to(Dp.dtype), Dp) * dp[:, None],
+                                Do)
+                  for Dp, dp, Do in zip(D, d, D_old))
+    h_new = h_abs * torch.where(change, h_factor, one)
+
+    t_next = torch.where(accept, t_new, t)
+    n_equal_new = torch.where(accept & ~do_adapt, n_equal_acc, 0)
+    # SciPy keeps the factorization across error-test rejections;
+    # only Newton failure, a Jacobian refresh or adaptation drop it.
+    lu_valid_new = ~(case_B | case_C | do_adapt)
+    current_jac_new = torch.where(
+        case_B, True, torch.where(accept, False, current_jac))
+    return (*D_new, accept, reject, order_new, h_new, t_next, n_equal_new,
+            lu_valid_new, current_jac_new)
+
+
+# a float dtype -> K6's code for it
+_CTRL_KINDS = {torch.float64: 0, torch.float32: 1}
+
+
+def _ctrl_launch(d, D, D_old, Y0, order, n_iter, n_equal_steps, converged,
+                 current_jac, h_abs, t, t_new, running, too_small,
+                 error_const, *, rtol, atol, safety, min_factor, max_factor,
+                 sens_error_control):
+    """One launch of K6 on the card into outputs it allocates; returns
+    them as the plain twin does."""
+    ct = h_abs.dtype
+    kinds = [_CTRL_KINDS.get(Dp.dtype) for Dp in D]
+    if (ct not in _CTRL_KINDS or None in kinds
+            or any(x.dtype != ct for x in (t, t_new, error_const))
+            or any(dp.dtype != Dp.dtype or Do.dtype != Dp.dtype
+                   for dp, Dp, Do in zip(d, D, D_old))
+            or Y0.dtype != D[0].dtype
+            or (ct == torch.float32 and torch.float64 in
+                [Dp.dtype for Dp in D])):
+        raise TypeError(
+            f"step_control: K6 takes float32 or float64 parts no wider than "
+            f"the float32 or float64 control, got control {ct}, times "
+            f"{[x.dtype for x in (t, t_new)]}, D {[Dp.dtype for Dp in D]}, "
+            f"d {[dp.dtype for dp in d]}, Y {Y0.dtype}")
+    if len(D) not in (1, 2) or len(d) != len(D) or len(D_old) != len(D):
+        raise ValueError(f"step_control: K6 takes one or two parts, got "
+                         f"{len(D)} of D, {len(D_old)} of D_old and "
+                         f"{len(d)} of d")
+    B, rows, n = D[0].shape[:3]
+    if (rows != D_ROWS or error_const.shape != (MAX_ORDER + 1,)
+            or any(Dp.shape[:3] != (B, D_ROWS, n)
+                   or dp.shape != (B, n, Dp.shape[3])
+                   or Do.shape != Dp.shape
+                   for Dp, dp, Do in zip(D, d, D_old))
+            or Y0.shape != d[0].shape):
+        raise ValueError(
+            f"step_control: K6 takes D (B, {D_ROWS}, n, k) with d and Y "
+            f"(B, n, k), got D {[tuple(Dp.shape) for Dp in D]}, d "
+            f"{[tuple(dp.shape) for dp in d]}, Y {tuple(Y0.shape)}")
+    dev = h_abs.device
+    D, D_old, d = (tuple(x.contiguous() for x in xs) for xs in (D, D_old, d))
+    D_new = tuple(torch.empty_like(Dp) for Dp in D)
+    parts = []
+    for kind, Dp, Do, dp, Dn in zip(kinds, D, D_old, d, D_new):
+        parts += [kind, Dp.shape[3], Dp.data_ptr(), Do.data_ptr(),
+                  dp.data_ptr(), Dn.data_ptr()]
+    if len(D) == 1:
+        parts += [-1, 0, None, None, None, None]
+    Y0, h_abs, t, t_new, error_const = (
+        x.contiguous() for x in (Y0, h_abs, t, t_new, error_const))
+    order = order.to(torch.int64).contiguous()
+    n_iter, n_equal_steps = (x.to(torch.int32).contiguous()
+                             for x in (n_iter, n_equal_steps))
+    converged, current_jac, running, too_small = (
+        x.contiguous() for x in (converged, current_jac, running, too_small))
+
+    def out(dtype):
+        return torch.empty(B, dtype=dtype, device=dev)
+
+    flags = dict(accept=out(torch.bool), reject=out(torch.bool),
+                 order_new=out(torch.int64), h_new=out(ct), t_next=out(ct),
+                 n_equal_new=out(torch.int32), lu_valid_new=out(torch.bool),
+                 current_jac_new=out(torch.bool))
+    kernels.launch(
+        "tsb_step_control", _CTRL_KINDS[ct], B, n, int(sens_error_control),
+        Y0.data_ptr(), order.data_ptr(), n_iter.data_ptr(),
+        n_equal_steps.data_ptr(), converged.data_ptr(),
+        current_jac.data_ptr(), h_abs.data_ptr(), t.data_ptr(),
+        t_new.data_ptr(), running.data_ptr(), too_small.data_ptr(),
+        error_const.data_ptr(), float(rtol), float(atol),
+        float(safety * (2 * NEWTON_MAXITER + 1)), float(min_factor),
+        float(max_factor), *(x.data_ptr() for x in flags.values()),
+        *parts, device=dev, counter="bdf.ctrl")
+    return (*D_new, *flags.values())
+
+
+def step_control(d, D, D_old, Y0, order, n_iter, n_equal_steps, converged,
+                 current_jac, h_abs, t, t_new, running, too_small,
+                 error_const, *, rtol, atol, safety, min_factor, max_factor,
+                 sens_error_control):
+    """The step controller of one attempt, after the Newton loop.
+
+    ``d``, ``D`` and ``D_old`` are tuples of parts, (B, n, k_p) and (B,
+    D_ROWS, n, k_p) twice: the attempt's total correction, the difference
+    array it was predicted from, and that array as the attempt began,
+    before the step-size rescaling; ``Y0`` (B, n, k_0) is part 0 of the
+    corrected block;
+    ``h_abs``, ``t``, ``t_new`` and the NDF ``error_const`` are in the
+    control dtype; the rest (B,). Returns ``(*D_new, accept, reject,
+    order_new, h_new, t_next, n_equal_new, lu_valid_new,
+    current_jac_new)``: SciPy's error test on the state column (on all of
+    part 0 with ``sens_error_control``), the order and step choice, and
+    ``D`` rescaled and updated into new tensors, in which a member that is
+    not ``running`` or whose step underflowed (``too_small``) keeps the
+    rows of ``D_old``.
+
+    On the card every call is one launch of K6
+    (``linalg/csrc/step_control.cu``), counted as ``bdf.ctrl``; parts it
+    has no code for raise. Under a ``torch.func`` transform, or where
+    autograd has to differentiate the call, the launch gives the value and
+    the twin the derivatives, counted as ``bdf.ctrl.plain``. On the CPU
+    the plain twin, :func:`step_control_plain`, runs."""
+    k = len(D)
+    opts = dict(rtol=rtol, atol=atol, safety=safety, min_factor=min_factor,
+                max_factor=max_factor, sens_error_control=sens_error_control)
+
+    def launch(*xs):
+        return _ctrl_launch(xs[:k], xs[k:2 * k], xs[2 * k:3 * k],
+                            *xs[3 * k:], **opts)
+
+    def twin(*xs):
+        return step_control_plain(xs[:k], xs[k:2 * k], xs[2 * k:3 * k],
+                                  *xs[3 * k:], **opts)
+
+    return kernels.call(
+        launch, twin, (*d, *D, *D_old, Y0, order, n_iter, n_equal_steps,
+                       converged, current_jac, h_abs, t, t_new, running,
+                       too_small, error_const),
+        plain_counter="bdf.ctrl.plain",
+        vmap_message="step_control: K6 cannot run under vmap over its "
+        "inputs; call step_control_plain instead")
 
 
 @trace.spanned("bdf.solve")
@@ -490,7 +749,6 @@ def bdf_solve(
     def body(st):
         with trace.span("bdf.predict"):
             t, order = st["t"], st["order"]
-            orderf = order.to(dtype)
             h_abs = st["h_abs"]
             D = st["D"]
             lu_valid = st["lu_valid"]
@@ -627,97 +885,17 @@ def bdf_solve(
             njev = st["njev"] + case_B.to(torch.int32)
 
         with trace.span("bdf.control"):
-            safety = (config.safety * (2 * NEWTON_MAXITER + 1)
-                      / (2 * NEWTON_MAXITER + n_iter.to(dtype)))
-            scale_new = atol + rtol * torch.abs(Y_new[0][..., 0])
-            d0, D0 = d[0], D[0]
-            pdt = D0.dtype
-            err = bcast(error_const[order].to(pdt), d0) * d0
-            if config.sens_error_control and m and not split:
-                scale_full = atol + rtol * torch.abs(Y_new[0])
-                error_norm = rms_norm(err / scale_full).to(dtype)
-            else:
-                scale_full = None
-                error_norm = rms_norm(err[..., 0] / scale_new).to(dtype)
-            # NaN compares false and would ACCEPT a garbage step
-            bad_err = ~torch.isfinite(error_norm)
-            error_norm = torch.where(bad_err, 2.0 * one, error_norm)
-            reject = converged & ((error_norm > 1.0) | bad_err)
-            accept = converged & ~reject
-
-            # --- order/step adaptation once n_equal > order ---
-            n_equal_acc = n_equal_steps + 1
-            do_adapt = accept & (n_equal_acc >= order + 1)
-            ec_m = error_const[torch.clamp(order - 1, min=0)].to(pdt)
-            ec_p = error_const[torch.clamp(order + 1, max=MAX_ORDER)].to(pdt)
-            # D_acc[order] = D[order] + d;  D_acc[order+2] = d - D[order+1]
-            err_m = bcast(ec_m, d0) * (D0[bi_all, order] + d0)
-            err_p = bcast(ec_p, d0) * (d0 - D0[bi_all, order + 1])
-            if scale_full is not None:
-                em = rms_norm(err_m / scale_full).to(dtype)
-                ep = rms_norm(err_p / scale_full).to(dtype)
-            else:
-                em = rms_norm(err_m[..., 0] / scale_new).to(dtype)
-                ep = rms_norm(err_p[..., 0] / scale_new).to(dtype)
-            err_m_norm = torch.where(order > 1, em, inf)
-            err_p_norm = torch.where(order < MAX_ORDER, ep, inf)
-            error_norms = torch.stack([err_m_norm, error_norm, err_p_norm], 1)
-            exponents = -1.0 / (orderf[:, None]
-                                + torch.arange(3, **kw)[None, :])
-            finite_norm = torch.isfinite(error_norms)
-            safe_norms = torch.where(finite_norm,
-                                     torch.clamp(error_norms, min=eps), one)
-            factors = torch.where(finite_norm, safe_norms ** exponents,
-                                  0.0 * one)
-            best = torch.argmax(factors, dim=1)
-            order_adapt = torch.clamp(order + best - 1, 1, MAX_ORDER)
-            factor_adapt = torch.clamp(safety * torch.amax(factors, dim=1),
-                                       max=config.max_factor)
-
-            factor_rej = torch.clamp(
-                safety * error_norm ** (-1.0 / (orderf + 1.0)),
-                min=config.min_factor)
-            h_factor = torch.where(
-                case_C, 0.5 * one,
-                torch.where(reject, factor_rej,
-                            torch.where(do_adapt, factor_adapt, one)))
-            change = case_C | reject | do_adapt
-            order_new = torch.where(do_adapt, order_adapt, order)
-
-            # Compose (change_D rescale ∘ accept update) into one (D_ROWS,
-            # D_ROWS) map W and a rank-one weight v per member:
-            # D_new = W @ D + v ⊗ d. The accept update (append d at rows
-            # order+1/order+2, then the downward telescoping sweep) is
-            #   rows i<=order:  Σ_{j=i}^{order} D[j] + d
-            #   row order+1:    d
-            #   row order+2:    d - D[order+1]
-            #   rows above:     identity
-            ri, rj = rows[:, None], rows[None, :]
-            o = order[:, None, None]
-            eyeD = (ri == rj).to(dtype)
-            acc_M = torch.where(
-                ri <= o, ((rj >= ri) & (rj <= o)).to(dtype),
-                torch.where(ri == o + 2, -(rj == o + 1).to(dtype),
-                            ((ri == rj) & (ri > o + 2)).to(dtype)))
-            acc_u = (rows[None, :] <= order[:, None] + 2).to(dtype)
-            Ma = torch.where(accept[:, None, None], acc_M, eyeD)
-            ua = torch.where(accept[:, None], acc_u, 0.0 * one)
-            Tc = torch.where(change[:, None, None],
-                             _padded_transform(h_factor, order_new), eyeD)
-            W = Tc @ Ma
-            v = (Tc @ ua[:, :, None])[:, :, 0]
-            D_new = tuple(_wsum(W, Dp)
-                          + bcast(v.to(Dp.dtype), Dp) * dp[:, None]
-                          for Dp, dp in zip(D, d))
-            h_new = h_abs * torch.where(change, h_factor, one)
-
-            t_next = torch.where(accept, t_new, t)
-            n_equal_new = torch.where(accept & ~do_adapt, n_equal_acc, 0)
-            # SciPy keeps the factorization across error-test rejections;
-            # only Newton failure, a Jacobian refresh or adaptation drop it.
-            lu_valid_new = ~(case_B | case_C | do_adapt)
-            current_jac_new = torch.where(
-                case_B, True, torch.where(accept, False, st["current_jac"]))
+            out = step_control(
+                d, D, st["D"], Y_new[0], order, n_iter, n_equal_steps,
+                converged, st["current_jac"], h_abs, t, t_new, running,
+                too_small, error_const, rtol=rtol, atol=atol,
+                safety=config.safety, min_factor=config.min_factor,
+                max_factor=config.max_factor,
+                sens_error_control=bool(config.sens_error_control and m
+                                        and not split))
+            D_new = out[:len(D)]
+            (accept, reject, order_new, h_new, t_next, n_equal_new,
+             lu_valid_new, current_jac_new) = out[len(D):]
 
         # --- dense export: this step's interpolant, pre-event-rewrite ---
         if dense_export:
@@ -807,7 +985,10 @@ def bdf_solve(
                                            h_new, order_new,
                                            config.dense_f32)[:, 0]
                                for Dp in D_new)
-                D_new = tuple(torch.cat([torch.where(bcast(has_term, Yt), Yt,
+                # gated as step_control gates D_new: a frozen member's D
+                # keeps its bits
+                moved = has_term & running & ~too_small
+                D_new = tuple(torch.cat([torch.where(bcast(moved, Yt), Yt,
                                                      Dp[:, 0])[:, None],
                                          Dp[:, 1:]], dim=1)
                               for Dp, Yt in zip(D_new, Y_term))
@@ -831,7 +1012,7 @@ def bdf_solve(
 
             acc32 = accept.to(torch.int32)
             new_st = dict(
-                t=t_next, h_abs=h_new, order=order_new, D=D_new, J=J,
+                t=t_next, h_abs=h_new, order=order_new, J=J,
                 fact=fact, lu_valid=lu_valid_new, current_jac=current_jac_new,
                 last_accepted=accept, n_equal_steps=n_equal_new, status=status,
                 nsteps=nsteps,
@@ -841,9 +1022,11 @@ def bdf_solve(
                 order_hist=st["order_hist"]
                 + torch.nn.functional.one_hot(order, MAX_ORDER + 1)
                 .to(torch.int32) * acc32[:, None], **ev_new)
-            rest = {k: v for k, v in st.items() if k != "ys_acc"}
+            # ys_acc (dense_fold) and D (step_control) come gated already
+            rest = {k: v for k, v in st.items() if k not in ("ys_acc", "D")}
             return dict(common.settle(dict(rest, fact=fact), new_st,
-                                      too_small, running), ys_acc=ys_acc)
+                                      too_small, running),
+                        D=D_new, ys_acc=ys_acc)
 
     running = trace.read((st["status"] == STATUS_RUNNING).any(),
                          "bdf.reads")
